@@ -3,10 +3,10 @@
 Knob NAMES and VALUES carry parity with the reference's config_example.py
 (cited per group below, into /root/reference/config_example.py) so users
 of the reference can bring their configs across unchanged; the
-provider/optimizer entries are TPU-native equivalents."""
+provider/optimizer entries are JAX equivalents."""
 
-from exposure_tpu.data import ArtistDataProvider, FiveKDataProvider
-from exposure_tpu.ops.filters import (
+from exposure_jax.data import ArtistDataProvider, FiveKDataProvider
+from exposure_jax.ops.filters import (
     ColorFilter,
     ContrastFilter,
     ExposureFilter,
@@ -16,7 +16,7 @@ from exposure_tpu.ops.filters import (
     ToneFilter,
     WNBFilter,
 )
-from exposure_tpu.utils import Dict
+from exposure_jax.utils import Dict
 
 cfg = Dict()
 
@@ -118,7 +118,7 @@ def _decayed(mul):
 cfg.lr_g = _decayed(_generator_lr_mul)
 cfg.lr_c = _decayed(_critic_lr_mul)
 
-# --- dispatch (exposure_tpu extension; no reference counterpart) ----------
+# --- dispatch (exposure_jax extension; no reference counterpart) ----------
 # Fuse up to N plain outer iterations into one device dispatch
 # (bit-identical RNG to per-iteration dispatch, core/steps.py) and defer
 # bookkeeping by `dispatch_pipeline_depth` chunks so metric fetches

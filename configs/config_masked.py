@@ -10,8 +10,8 @@ over (x, y, luminance), and the filter is lerped in by that mask.  The
 recorded trajectories carry the raw mask parameters, so white-box replay
 (jnp chain and fused Pallas kernel) stays exact at any resolution."""
 
-from exposure_tpu.ops.filters import LevelFilter, VignetFilter
-from exposure_tpu.utils.config import load_config
+from exposure_jax.ops.filters import LevelFilter, VignetFilter
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('synthetic')
 

@@ -2,8 +2,8 @@
 images (parity with reference config_sintel.py, which is config_example
 with folder data providers, config_sintel.py:180-191)."""
 
-from exposure_tpu.data import FiveKDataProvider, FolderDataProvider
-from exposure_tpu.utils.config import load_config
+from exposure_jax.data import FiveKDataProvider, FolderDataProvider
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('example')
 

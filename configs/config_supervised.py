@@ -3,9 +3,9 @@ synthetic data, MSE-distance reward, no critic updates (reference
 cfg.supervised, net.py:100-102, 360-364 — shipped but inert there; fully
 functional here).  5k iterations converge the paired objective."""
 
-from exposure_tpu.data import SyntheticDataProvider
-from exposure_tpu.data.synthetic import PairedSyntheticDataProvider
-from exposure_tpu.utils.config import load_config
+from exposure_jax.data import SyntheticDataProvider
+from exposure_jax.data.synthetic import PairedSyntheticDataProvider
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('example')
 

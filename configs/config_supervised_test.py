@@ -2,9 +2,9 @@
 data, MSE reward, no critic updates (reference cfg.supervised,
 net.py:100-102, 360-364)."""
 
-from exposure_tpu.data import SyntheticDataProvider
-from exposure_tpu.data.synthetic import PairedSyntheticDataProvider
-from exposure_tpu.utils.config import load_config
+from exposure_jax.data import SyntheticDataProvider
+from exposure_jax.data.synthetic import PairedSyntheticDataProvider
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('test')
 

@@ -1,13 +1,13 @@
 """Flagship-architecture config on procedural data: validates end-to-end
 learning dynamics (EMD convergence, pool health) in environments without
-the FiveK download (zero-egress dev / CI on real TPUs)."""
+the FiveK download (zero-egress dev / CI on the accelerator)."""
 
-from exposure_tpu.data import SyntheticDataProvider
-from exposure_tpu.utils.config import load_config
+from exposure_jax.data import SyntheticDataProvider
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('example')
 
-# amortize remote-dispatch latency: up to 100 plain iterations per fused
+# amortize per-dispatch host latency: up to 100 plain iterations per fused
 # call (bit-identical to single dispatch; metrics come back stacked per
 # iteration so the 10-iter logging cadence is preserved, core/steps.py);
 # bookkeeping is pipelined 2 chunks behind dispatch (core/trainer.py)

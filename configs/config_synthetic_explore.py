@@ -12,11 +12,11 @@ the plain (narrow-target) flagship stand-in to measure generalization
 across data distributions; the reference default (0.05,
 config_example.py parity) is untouched elsewhere.
 
-Validate with ``python -m exposure_tpu.tools.validate_parity --config
+Validate with ``python -m exposure_jax.tools.validate_parity --config
 synthetic_explore --seeds 0 1 2 3 4`` and compare to PARITY_RUNS.json.
 """
 
-from exposure_tpu.utils.config import load_config
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('synthetic')
 

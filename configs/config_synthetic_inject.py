@@ -16,13 +16,13 @@ zeroed, so the policy is NOT pulled toward random actions — but their
 trajectories land in the replay pool, keeping out-of-family states in
 the critic's and value net's training distribution for the whole run.
 
-Validate: ``python -m exposure_tpu.tools.validate_parity --config
+Validate: ``python -m exposure_jax.tools.validate_parity --config
 synthetic_inject --seeds 0 1 2 3 4 --out PARITY_INJECT.json`` and
 compare min/mean avg-intersection to PARITY_EXPLORE_FLAGSHIP.json
 (bar from VERDICT r3: min >= 0.58, mean >= 0.62).
 """
 
-from exposure_tpu.utils.config import load_config
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('synthetic_explore')
 

@@ -13,12 +13,12 @@ monotonically with dose (pool diversity is the mechanism) or is 0.2
 past the optimum (too much off-policy state dilutes the critic's
 on-policy discrimination)?  Same injection window as the other doses.
 
-Validate: ``python -m exposure_tpu.tools.validate_parity --config
+Validate: ``python -m exposure_jax.tools.validate_parity --config
 synthetic_inject15 --seeds 0 1 2 3 4 --out PARITY_INJECT15.json``
 (compare min/mean and the >= 0.70 count to the table above).
 """
 
-from exposure_tpu.utils.config import load_config
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('synthetic_explore')
 

@@ -12,12 +12,12 @@ forced uniform-random action (surrogate zeroed — still strictly
 off-policy for the policy gradient; the critic/value distribution is
 what changes), injection off after 75% of training as before.
 
-Validate: ``python -m exposure_tpu.tools.validate_parity --config
+Validate: ``python -m exposure_jax.tools.validate_parity --config
 synthetic_inject2 --seeds 0 1 2 3 4 --out PARITY_INJECT2.json``
 (bar: min >= 0.58, mean >= 0.62).
 """
 
-from exposure_tpu.utils.config import load_config
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('synthetic_explore')
 

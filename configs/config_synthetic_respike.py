@@ -11,12 +11,12 @@ the effective coefficient is 1.5x the run-start value (0.5 residual
 linear decay + 1.0 bump), enough to melt a premature argmax without
 resetting parameter heads.
 
-Validate: ``python -m exposure_tpu.tools.validate_parity --config
+Validate: ``python -m exposure_jax.tools.validate_parity --config
 synthetic_respike --seeds 0 1 2 3 4 --out PARITY_RESPIKE.json``
 (bar from VERDICT r3: min >= 0.58, mean >= 0.62).
 """
 
-from exposure_tpu.utils.config import load_config
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('synthetic_explore')
 

@@ -20,11 +20,11 @@ produces flat saturated patches the convolutional WGAN critic can
 separate per-patch.  Prediction under test: the Ct/C policy bimodality
 of PARITY_RUNS.json resolves (contrast-intersection std tightens)
 without touching the reward, agent, or critic.  Validate with
-``python -m exposure_tpu.tools.validate_parity --config synthetic_tex``.
+``python -m exposure_jax.tools.validate_parity --config synthetic_tex``.
 """
 
-from exposure_tpu.data import SyntheticDataProvider
-from exposure_tpu.utils.config import load_config
+from exposure_jax.data import SyntheticDataProvider
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('synthetic')
 

@@ -16,11 +16,11 @@ over training, reference agent.py penalty schedule).
 Seeds 0/2/3 of PARITY_TEX.json converged to the low-saturation Ct
 family (saturation intersection 0.21); success = those same seeds now
 finding the high-saturation family (>0.5) under the identical data and
-reward.  Validate with ``python -m exposure_tpu.tools.validate_parity
+reward.  Validate with ``python -m exposure_jax.tools.validate_parity
 --config synthetic_tex_explore --seeds 0 2 3``.
 """
 
-from exposure_tpu.utils.config import load_config
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('synthetic_tex')
 

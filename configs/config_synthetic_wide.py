@@ -16,11 +16,11 @@ data/synthetic.py make_synthetic_pack).
 Inputs (raw style) are unchanged, so runs are comparable input-side with
 config_synthetic; only the target distribution (and hence metric
 reference) differs.  Validate with
-``python -m exposure_tpu.tools.validate_parity --config synthetic_wide``.
+``python -m exposure_jax.tools.validate_parity --config synthetic_wide``.
 """
 
-from exposure_tpu.data import SyntheticDataProvider
-from exposure_tpu.utils.config import load_config
+from exposure_jax.data import SyntheticDataProvider
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('synthetic')
 

@@ -2,8 +2,8 @@
 config_example but a procedural dataset, small batch and few iterations.
 Runs in seconds on the CPU backend."""
 
-from exposure_tpu.data import SyntheticDataProvider
-from exposure_tpu.utils.config import load_config
+from exposure_jax.data import SyntheticDataProvider
+from exposure_jax.utils.config import load_config
 
 cfg = load_config('example')
 

@@ -11,7 +11,7 @@ import os
 import shutil
 import sys
 
-from exposure_tpu.utils.config import load_config
+from exposure_jax.utils.config import load_config
 
 
 def evaluate():
@@ -27,9 +27,9 @@ def evaluate():
                         help='batch inputs by resolution (one rollout + '
                              'one fused replay per resolution group)')
     parser.add_argument('--u8', action='store_true',
-                        help='with --batched: replay through the fused '
-                             'kernel\'s uint8 serving path (fastest; '
-                             'trades sub-1/255 shadow precision)')
+                        help='with --batched: replay in uint8 fixed '
+                             'point (fastest; trades sub-1/255 shadow '
+                             'precision)')
     args = parser.parse_args()
 
     snapshot = os.path.join('models', args.config, args.model_name,
@@ -43,7 +43,7 @@ def evaluate():
         cfg = load_config(args.config)
     cfg.name = args.config + '/' + args.model_name
 
-    from exposure_tpu.core.evaluator import Evaluator
+    from exposure_jax.core.evaluator import Evaluator
     ev = Evaluator(cfg, ckpt=args.ckpt)
     if args.batched:
         ev.eval_batched(spec_files=args.images,

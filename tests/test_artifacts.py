@@ -1,4 +1,4 @@
-"""Durable serving artifacts (core/artifacts.py): compact f16 policy
+"""Durable serving artifacts (core/artifacts.py): compact .npz policy
 exports that survive fresh checkouts, and the checkpoint->artifact
 restore fallback serving/eval/bench all share."""
 
@@ -8,16 +8,16 @@ import jax
 import numpy as np
 import pytest
 
-from exposure_tpu.core.artifacts import (
+from exposure_jax.core.artifacts import (
     artifact_path,
     export_serving_artifact,
     has_trained_params,
     restore_for_serving,
     restore_serving_artifact,
 )
-from exposure_tpu.core.checkpoint import save_checkpoint
-from exposure_tpu.core.trainer import build_models, init_train_state
-from exposure_tpu.utils.config import load_config
+from exposure_jax.core.checkpoint import save_checkpoint
+from exposure_jax.core.trainer import build_models, init_train_state
+from exposure_jax.utils.config import load_config
 
 
 @pytest.fixture(scope='module')
@@ -42,7 +42,7 @@ def _fresh_template(small_state):
                                          (np.float16, False)])
 def test_roundtrip(tmp_path, small_state, dtype, exact):
     cfg, _, _, _, state = small_state
-    path = str(tmp_path / 'a.msgpack.gz')
+    path = str(tmp_path / 'a.npz')
     export_serving_artifact(cfg.name, state, 123, path, dtype=dtype)
     restored, step = restore_serving_artifact(
         path, _fresh_template(small_state))
@@ -67,7 +67,7 @@ def test_roundtrip(tmp_path, small_state, dtype, exact):
 
 def test_restore_rejects_mismatched_tree(tmp_path, small_state):
     cfg, _, _, _, state = small_state
-    path = str(tmp_path / 'a.msgpack.gz')
+    path = str(tmp_path / 'a.npz')
     export_serving_artifact(cfg.name, state, 1, path)
     bad = _fresh_template(small_state)
     # template with an extra-shaped leaf must fail loudly
@@ -116,3 +116,24 @@ def test_has_trained_params(tmp_path, small_state, monkeypatch):
     assert not has_trained_params(run)
     export_serving_artifact(run, state, 1)
     assert has_trained_params(run)
+
+
+def test_tracked_artifact_restores_into_flagship_template():
+    # the git-tracked artifact holds every generator leaf of the
+    # synthetic_explore config, by the parameter names the plain
+    # networks create, and restores as finite float32 arrays
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config('synthetic_explore')
+    filters, policy, critic, value = build_models(cfg)
+    state, _ = init_train_state(cfg, policy, critic, value, seed=0)
+    path = os.path.join(here, artifact_path('synthetic_explore/best'))
+    restored, step = restore_serving_artifact(path, state)
+    assert step > 0
+    leaves = jax.tree_util.tree_leaves(restored.gen_params)
+    assert len(leaves) == len(jax.tree_util.tree_leaves(state.gen_params))
+    for leaf in leaves:
+        assert leaf.dtype == np.float32
+        assert np.isfinite(np.asarray(leaf)).all()
+    conv = restored.gen_params['params']['shared_extractor']['Conv_0']
+    assert conv['kernel'].shape == (4, 4, 3 + cfg.num_state_dim,
+                                    cfg.base_channels)

@@ -5,7 +5,7 @@ import math
 
 import pytest
 
-from exposure_tpu.utils import Dict, load_config, merge_dict
+from exposure_jax.utils import Dict, load_config, merge_dict
 
 
 def test_dict_attribute_access():
@@ -78,7 +78,7 @@ def test_sintel_config_overrides_target_provider():
 
 
 def test_all_shipped_configs_load():
-    from exposure_tpu.utils.config import load_config
+    from exposure_jax.utils.config import load_config
     for name in ('example', 'sintel', 'test', 'synthetic', 'masked',
                  'supervised_test', 'supervised'):
         cfg = load_config(name)

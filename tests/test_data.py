@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from exposure_tpu.data import DataProvider, SyntheticDataProvider
-from exposure_tpu.data.device_sampler import DevicePack, sample_batch
-from exposure_tpu.data.folds import read_set
+from exposure_jax.data import DataProvider, SyntheticDataProvider
+from exposure_jax.data.device_sampler import DevicePack, sample_batch
+from exposure_jax.data.folds import read_set
 
 
 class TestHostProvider:
@@ -123,13 +123,13 @@ class TestSyntheticSpread:
     pack so existing runs/configs remain reproducible."""
 
     def test_spread_zero_is_bit_identical(self):
-        from exposure_tpu.data.synthetic import make_synthetic_pack
+        from exposure_jax.data.synthetic import make_synthetic_pack
         a = make_synthetic_pack(64, 48, 'retouched', seed=2)
         b = make_synthetic_pack(64, 48, 'retouched', seed=2, spread=0.0)
         assert np.array_equal(a, b)
 
     def test_spread_widens_contrast_and_saturation(self):
-        from exposure_tpu.data.synthetic import make_synthetic_pack
+        from exposure_jax.data.synthetic import make_synthetic_pack
         lum_w = np.asarray([0.27, 0.67, 0.06], np.float32)
 
         def contrast_std(pack):
@@ -143,7 +143,7 @@ class TestSyntheticSpread:
         assert wide.min() >= 0.0 and wide.max() <= 1.0
 
     def test_wide_config_loads(self):
-        from exposure_tpu.utils.config import load_config
+        from exposure_jax.utils.config import load_config
         cfg = load_config('synthetic_wide')
         pack = cfg.real_data_provider().data
         assert pack.shape[1:] == (64, 64, 3)
@@ -156,14 +156,14 @@ class TestSyntheticTexture:
     stay bit-identical to the historical pack."""
 
     def test_texture_zero_is_bit_identical(self):
-        from exposure_tpu.data.synthetic import make_synthetic_pack
+        from exposure_jax.data.synthetic import make_synthetic_pack
         for style in ('raw', 'retouched'):
             a = make_synthetic_pack(32, 48, style, seed=2)
             b = make_synthetic_pack(32, 48, style, seed=2, texture=0.0)
             assert np.array_equal(a, b)
 
     def test_textured_targets_never_clip_flat(self):
-        from exposure_tpu.data.synthetic import make_synthetic_pack
+        from exposure_jax.data.synthetic import make_synthetic_pack
         t = make_synthetic_pack(64, 80, 'retouched', seed=2,
                                 texture=1.0)
         # the soft tanh knee never saturates...
@@ -182,7 +182,7 @@ class TestSyntheticTexture:
         # base RNG streams are untouched, so the raw packs are aligned
         # image-for-image and the knob shows up as a bounded
         # multiplicative perturbation (±15% pre-gamma)
-        from exposure_tpu.data.synthetic import make_synthetic_pack
+        from exposure_jax.data.synthetic import make_synthetic_pack
         base = make_synthetic_pack(32, 48, 'raw', seed=0)
         tex = make_synthetic_pack(32, 48, 'raw', seed=0, texture=1.0)
         ratio = tex / np.maximum(base, 1e-4)
@@ -191,7 +191,7 @@ class TestSyntheticTexture:
         assert ratio.std(axis=(1, 2, 3)).min() > 0.01
 
     def test_tex_config_loads(self):
-        from exposure_tpu.utils.config import load_config
+        from exposure_jax.utils.config import load_config
         cfg = load_config('synthetic_tex')
         pack = cfg.real_data_provider().data
         assert pack.shape[1:] == (64, 64, 3)

@@ -4,9 +4,9 @@ state must not be replayed (reference net.py:820-821 break semantics)."""
 import numpy as np
 import pytest
 
-from exposure_tpu.core.evaluator import Evaluator
-from exposure_tpu.core.rollout import Trajectory
-from exposure_tpu.utils.ops import STATE_STOPPED_DIM
+from exposure_jax.core.evaluator import Evaluator
+from exposure_jax.core.rollout import Trajectory
+from exposure_jax.utils.ops import STATE_STOPPED_DIM
 
 
 def make_traj(stopped_flags):

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exposure_tpu.ops import (
+from exposure_jax.ops import (
     ColorFilter,
     ContrastFilter,
     ExposureFilter,
@@ -25,7 +25,7 @@ from exposure_tpu.ops import (
     hsv_to_rgb,
     rgb_to_hsv,
 )
-from exposure_tpu.utils import Dict, rgb2lum, tanh_range
+from exposure_jax.utils import Dict, rgb2lum, tanh_range
 
 
 def make_cfg():

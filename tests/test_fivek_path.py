@@ -17,7 +17,7 @@ import imageio.v2 as imageio
 import numpy as np
 import pytest
 
-from exposure_tpu.data.fivek import (
+from exposure_jax.data.fivek import (
     AUGMENTATION_FACTOR,
     FiveKDataProvider,
     preprocess_raw_aug,
@@ -103,7 +103,7 @@ def test_fivek_provider_full_path(fivek_tree, built_pack):
 
 
 def test_artist_provider_full_path(fivek_tree):
-    from exposure_tpu.data.artist import ArtistDataProvider
+    from exposure_jax.data.artist import ArtistDataProvider
     dp = ArtistDataProvider(set_name='2k_target',
                             data_root=str(fivek_tree),
                             output_size=64, augmentation=1.0,
@@ -118,7 +118,7 @@ def test_flagship_config_provider_lambdas(fivek_tree, built_pack,
                                           monkeypatch):
     # the exact provider wiring of config_example, against the miniature
     # tree (the reference workflow's first step, net.py train path)
-    from exposure_tpu.utils.config import load_config
+    from exposure_jax.utils.config import load_config
     FiveKDataProvider._raw_image_pack = None
     monkeypatch.chdir(str(fivek_tree))
     try:
@@ -141,7 +141,7 @@ def test_import_validator(fivek_tree, built_pack):
     correctly checks structure/dtype/range on a dropped tree; a
     spec-shaped pack passes clean (the one-command import contract,
     tools/import_reference_data.py)."""
-    from exposure_tpu.tools.import_reference_data import (
+    from exposure_jax.tools.import_reference_data import (
         PACK_REL, validate_pack)
     ok, findings = validate_pack(str(fivek_tree))
     # miniature tree: pack/fold/artist SIZES differ from the real spec,
@@ -187,7 +187,7 @@ def test_import_validator(fivek_tree, built_pack):
 
     # a fold whose digest MATCHES the canonical table passes strict:
     # point the table at the synthetic file's own digest
-    from exposure_tpu.tools import import_reference_data as ird
+    from exposure_jax.tools import import_reference_data as ird
     rel = 'data/folds/FiveK_test_AMT.txt'
     saved = ird.FOLD_SHA256[rel]
     try:

@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exposure_tpu.core.losses import critic_loss, generator_value_loss
-from exposure_tpu.models import CriticNet, PolicyNet
-from exposure_tpu.utils import load_config
-from exposure_tpu.utils.ops import STATE_STEP_DIM
+from exposure_jax.core.losses import critic_loss, generator_value_loss
+from exposure_jax.models import CriticNet, PolicyNet
+from exposure_jax.utils import load_config
+from exposure_jax.utils.ops import STATE_STEP_DIM
 
 
 @pytest.fixture(scope='module')

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exposure_tpu.models import PolicyNet, agent_step, initial_states
-from exposure_tpu.ops.filters import ExposureFilter
-from exposure_tpu.utils import load_config
+from exposure_jax.models import PolicyNet, agent_step, initial_states
+from exposure_jax.ops.filters import ExposureFilter
+from exposure_jax.utils import load_config
 
 
 @pytest.fixture(scope='module')
@@ -50,8 +50,8 @@ def test_masked_whitebox_replay(masked_cfg, rng):
     # reproduce the rollout's final image — the white-box property
     # extends to the spatial masks.
     import jax
-    from exposure_tpu.core.rollout import rollout
-    from exposure_tpu.ops.chain import apply_filter_chain
+    from exposure_jax.core.rollout import rollout
+    from exposure_jax.ops.chain import apply_filter_chain
 
     cfg = masked_cfg
     filters = [f(cfg) for f in cfg.filters]
@@ -121,8 +121,8 @@ def test_agent_step_trains_mask_heads(masked_cfg, rng):
 def masked_trained(tmp_path_factory):
     """Shrunken masked training smoke: masking on, Vignet+Level in the
     bank (the config_masked setup at test scale)."""
-    from exposure_tpu.core.trainer import Trainer
-    from exposure_tpu.ops.filters import LevelFilter, VignetFilter
+    from exposure_jax.core.trainer import Trainer
+    from exposure_jax.ops.filters import LevelFilter, VignetFilter
     root = tmp_path_factory.mktemp('models')
     cfg = load_config('test').copy()
     cfg.masking = True
@@ -153,8 +153,8 @@ def test_masked_viz_grid_has_mask_row(masked_trained):
 
 def test_masked_evaluator_steps_strip(masked_trained, tmp_path, rng):
     import os
-    from exposure_tpu.core.evaluator import Evaluator
-    from exposure_tpu.utils.image_io import write_image
+    from exposure_jax.core.evaluator import Evaluator
+    from exposure_jax.utils.image_io import write_image
     cfg, trainer, root = masked_trained
     in_path = str(tmp_path / 'input.png')
     write_image(in_path, rng.rand(96, 128, 3).astype(np.float32))
@@ -171,8 +171,8 @@ def test_masked_evaluator_steps_strip(masked_trained, tmp_path, rng):
 
 def test_draw_mask_panel_vignette_contour(masked_cfg, rng):
     # the vignette's 0.5 contour (the ellipse) must be drawn in red
-    from exposure_tpu.ops.filters import VignetFilter
-    from exposure_tpu.utils.viz import draw_mask_panel
+    from exposure_jax.ops.filters import VignetFilter
+    from exposure_jax.utils.viz import draw_mask_panel
     f = VignetFilter(masked_cfg)
     img = rng.rand(64, 64, 3).astype(np.float32)
     # params that give a mid-strength elliptical mask crossing 0.5

@@ -8,14 +8,14 @@ import sys
 import numpy as np
 import pytest
 
-from exposure_tpu.native import _LIB_PATH, library_available
+from exposure_jax.native import _LIB_PATH, library_available
 
 
 @pytest.fixture(scope='module', autouse=True)
 def built_library():
     if not library_available():
         subprocess.check_call(
-            [sys.executable, '-m', 'exposure_tpu.native.build'])
+            [sys.executable, '-m', 'exposure_jax.native.build'])
     assert library_available()
 
 
@@ -29,7 +29,7 @@ def pack_file(tmp_path_factory):
 
 
 def test_open_and_info(pack_file):
-    from exposure_tpu.native import NativePack
+    from exposure_jax.native import NativePack
     path, pack = pack_file
     np_pack = NativePack(path)
     assert np_pack.shape == (20, 80, 80, 3)
@@ -37,7 +37,7 @@ def test_open_and_info(pack_file):
 
 
 def test_crops_are_true_subwindows(pack_file):
-    from exposure_tpu.native import NativePack
+    from exposure_jax.native import NativePack
     path, pack = pack_file
     np_pack = NativePack(path)
     batch = np_pack.sample(16, 64, augment=True, seed=7)
@@ -62,7 +62,7 @@ def test_crops_are_true_subwindows(pack_file):
 
 
 def test_deterministic_by_seed(pack_file):
-    from exposure_tpu.native import NativePack
+    from exposure_jax.native import NativePack
     path, _ = pack_file
     np_pack = NativePack(path)
     a = np_pack.sample(32, 64, seed=5)
@@ -74,7 +74,7 @@ def test_deterministic_by_seed(pack_file):
 
 
 def test_flips_occur(pack_file):
-    from exposure_tpu.native import NativePack
+    from exposure_jax.native import NativePack
     path, pack = pack_file
     # asymmetric pack: gradient along width
     grad = np.tile(np.linspace(0, 1, 80, dtype=np.float32)[None, :, None],
@@ -95,7 +95,7 @@ def test_resize_when_not_augmenting(pack_file):
     # whole image to output_size (data/provider.py:89-101, cv2.resize
     # INTER_LINEAR), NOT a center crop.
     cv2 = pytest.importorskip('cv2')
-    from exposure_tpu.native import NativePack
+    from exposure_jax.native import NativePack
     path, pack = pack_file
     np_pack = NativePack(path)
     batch = np_pack.sample(8, 64, augment=False, seed=1)
@@ -108,7 +108,7 @@ def test_resize_when_not_augmenting(pack_file):
 
 
 def test_same_size_passthrough_when_not_augmenting(pack_file):
-    from exposure_tpu.native import NativePack
+    from exposure_jax.native import NativePack
     path, pack = pack_file
     np_pack = NativePack(path)
     batch = np_pack.sample(8, 80, augment=False, seed=2)
@@ -118,7 +118,7 @@ def test_same_size_passthrough_when_not_augmenting(pack_file):
 
 
 def test_provider_wrapper(pack_file):
-    from exposure_tpu.data.native_provider import NativePackProvider
+    from exposure_jax.data.native_provider import NativePackProvider
     path, _ = pack_file
     dp = NativePackProvider(path, output_size=64, augmentation=0.3)
     b1, feats = dp.get_next_batch(8)
@@ -130,7 +130,7 @@ def test_provider_wrapper(pack_file):
 
 
 def test_rejects_wrong_dtype(tmp_path):
-    from exposure_tpu.native import NativePack
+    from exposure_jax.native import NativePack
     bad = str(tmp_path / 'bad.npy')
     np.save(bad, np.zeros((2, 8, 8, 3), np.float64))
     with pytest.raises(IOError):
@@ -141,8 +141,8 @@ def test_sample_into_matches_sample(pack_file):
     """The zero-restack bundle path (one native call into a caller view)
     is bit-identical to sample() at the same seed, validates layout, and
     the provider wrapper applies scaling in place."""
-    from exposure_tpu.data.native_provider import NativePackProvider
-    from exposure_tpu.native import NativePack
+    from exposure_jax.data.native_provider import NativePackProvider
+    from exposure_jax.native import NativePack
     path, _ = pack_file
     np_pack = NativePack(path)
     ref = np_pack.sample(12, 64, augment=True, seed=99)
@@ -175,7 +175,7 @@ def test_sample_u8_quantizes_same_crops(pack_file):
     # flip selection) and write round(clamp(x,0,1)*255) of the f32
     # pixels — both on the augmented-crop path and the bilinear-resize
     # path (hostloader.cpp sample_crops_impl<unsigned char>)
-    from exposure_tpu.native import NativePack
+    from exposure_jax.native import NativePack
     path, _ = pack_file
     np_pack = NativePack(path)
     for augment, out_size in ((True, 64), (False, 48)):
@@ -190,7 +190,7 @@ def test_sample_u8_quantizes_same_crops(pack_file):
 
 
 def test_provider_u8_rejects_scaling(pack_file):
-    from exposure_tpu.data.native_provider import NativePackProvider
+    from exposure_jax.data.native_provider import NativePackProvider
     path, _ = pack_file
     dp = NativePackProvider(path, output_size=64, augmentation=0.3,
                             image_scaling=2.0, seed=5)

@@ -6,16 +6,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exposure_tpu.models import (
+from exposure_jax.models import (
     CriticNet,
     PolicyNet,
     agent_step,
     enrich_image_input,
     initial_states,
 )
-from exposure_tpu.models.networks import critic_stats
-from exposure_tpu.utils import load_config
-from exposure_tpu.utils.ops import (
+from exposure_jax.models.networks import critic_stats
+from exposure_jax.utils import load_config
+from exposure_jax.utils.ops import (
     STATE_DROPOUT_BEGIN,
     STATE_REWARD_DIM,
     STATE_STEP_DIM,
@@ -76,7 +76,7 @@ def test_feature_extractor_conv_progression(cfg, policy_and_vars):
 def test_flagship_extractor_matches_reference_shapes():
     # Flagship (config_example) sizes: 32 -> 64 -> 128 -> 256 with a
     # 4096-d bottleneck (reference agent.py:11-37, config_example.py:71,80).
-    from exposure_tpu.models.networks import FeatureExtractor
+    from exposure_jax.models.networks import FeatureExtractor
     fe = FeatureExtractor(output_dim=4096, base_channels=32)
     key = jax.random.PRNGKey(0)
     variables = fe.init({'params': key, 'dropout': key},
@@ -341,3 +341,141 @@ class TestExplorationRemedies:
         np.testing.assert_allclose(np.asarray(base.penalty),
                                    np.asarray(out.penalty), rtol=1e-5,
                                    atol=1e-9)
+
+
+def _flax_reference_modules():
+    """The networks as flax.linen modules (the form checkpoints were
+    first trained with), for comparison on identical parameters."""
+    nn = pytest.importorskip('flax.linen')
+    from exposure_jax.utils.ops import lrelu
+    glorot = nn.initializers.glorot_uniform()
+
+    class FeatureExtractor(nn.Module):
+        output_dim: int
+        base_channels: int = 32
+        dropout_keep_prob: float = 0.5
+
+        @nn.compact
+        def __call__(self, x):
+            x = x - 0.5
+            size, channels = x.shape[2], self.base_channels
+            x = lrelu(nn.Conv(channels, (4, 4), strides=(2, 2),
+                              padding='SAME', kernel_init=glorot)(x))
+            size //= 2
+            while size > 4:
+                channels = self.output_dim // 16 if size == 8 \
+                    else channels * 2
+                x = lrelu(nn.Conv(channels, (4, 4), strides=(2, 2),
+                                  padding='SAME', kernel_init=glorot)(x))
+                size //= 2
+            x = x.reshape((x.shape[0], self.output_dim))
+            return nn.Dropout(rate=1.0 - self.dropout_keep_prob,
+                              deterministic=False)(x)
+
+    class PolicyNet(nn.Module):
+        filter_output_dims: tuple
+        feature_extractor_dims: int
+        base_channels: int
+        fc1_size: int
+        dropout_keep_prob: float
+
+        @nn.compact
+        def __call__(self, x):
+            fe = dict(output_dim=self.feature_extractor_dims,
+                      base_channels=self.base_channels,
+                      dropout_keep_prob=self.dropout_keep_prob)
+            shared = FeatureExtractor(**fe, name='shared_extractor')(x)
+            raw = []
+            for j, d in enumerate(self.filter_output_dims):
+                h = lrelu(nn.Dense(self.fc1_size, kernel_init=glorot,
+                                   name='filter_%d_fc1' % j)(shared))
+                raw.append(nn.Dense(d, kernel_init=glorot,
+                                    name='filter_%d_fc2' % j)(h))
+            sel = FeatureExtractor(**fe, name='selector_extractor')(x)
+            sel = lrelu(nn.Dense(self.fc1_size, kernel_init=glorot,
+                                 name='selector_fc1')(sel))
+            return raw, nn.Dense(len(self.filter_output_dims),
+                                 kernel_init=glorot,
+                                 name='selector_fc2')(sel)
+
+    class CriticNet(nn.Module):
+        base_channels: int
+        fc1_size: int
+
+        @nn.compact
+        def __call__(self, images, states=None):
+            from exposure_jax.models.networks import critic_stats
+            stat = critic_stats(images)
+            states = stat if states is None else \
+                jnp.concatenate([states, stat], axis=1)
+            x = jnp.concatenate(
+                [images, states[:, None, None, :] + images[..., 0:1] * 0],
+                axis=3) - 0.5
+            size, channels = x.shape[2], self.base_channels
+            x = lrelu(nn.Conv(channels, (4, 4), strides=(2, 2),
+                              padding='SAME', kernel_init=glorot)(x))
+            size //= 2
+            while size > 4:
+                channels *= 2
+                size //= 2
+                x = lrelu(nn.Conv(channels, (4, 4), strides=(2, 2),
+                                  padding='SAME', kernel_init=glorot)(x))
+            x = x.reshape((x.shape[0], 16 * channels))
+            x = lrelu(nn.Dense(self.fc1_size, kernel_init=glorot)(x))
+            return nn.Dense(1, kernel_init=glorot)(x)
+
+    return PolicyNet, CriticNet
+
+
+@pytest.mark.parametrize('net', ['policy', 'critic', 'value'])
+def test_plain_networks_match_flax(cfg, filters, net):
+    # with dropout off (keep_prob 1) the plain-lax networks compute what
+    # the flax.linen modules compute, on parameters either one created:
+    # same tree, same names, same shapes, same outputs
+    FlaxPolicy, FlaxCritic = _flax_reference_modules()
+    key = jax.random.PRNGKey(3)
+    dims = tuple(f.get_num_filter_parameters() +
+                 f.get_num_mask_parameters() for f in filters)
+    if net == 'policy':
+        args = dict(filter_output_dims=dims,
+                    feature_extractor_dims=cfg.feature_extractor_dims,
+                    base_channels=cfg.base_channels, fc1_size=cfg.fc1_size,
+                    dropout_keep_prob=1.0)
+        ours, ref = PolicyNet(**args), FlaxPolicy(**args)
+        inputs = (jax.random.uniform(key, (3, 64, 64,
+                                           3 + cfg.num_state_dim)),)
+    else:
+        ours = CriticNet(cfg.base_channels, cfg.fc1_size)
+        ref = FlaxCritic(cfg.base_channels, cfg.fc1_size)
+        inputs = (jax.random.uniform(key, (3, 64, 64, 3)),)
+        if net == 'value':
+            inputs += (jax.random.uniform(key, (3, cfg.num_state_dim)),)
+    rngs = {'params': key, 'dropout': key}
+    v_ref = ref.init(rngs, *inputs)
+    v_ours = ours.init(rngs, *inputs)
+    assert (jax.tree_util.tree_structure(v_ref) ==
+            jax.tree_util.tree_structure(v_ours))
+    for a, b in zip(jax.tree_util.tree_leaves(v_ref),
+                    jax.tree_util.tree_leaves(v_ours)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    for variables in (v_ref, v_ours):
+        got = ours.apply(variables, *inputs, rngs={'dropout': key})
+        want = ref.apply(variables, *inputs, rngs={'dropout': key})
+        for a, b in zip(jax.tree_util.tree_leaves(got),
+                        jax.tree_util.tree_leaves(want)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_dropout_masks_follow_the_key(cfg, filters, policy_and_vars):
+    # dropout is always on: one key gives one trajectory of masks (the
+    # two extractors draw different ones), another key other masks
+    policy, variables = policy_and_vars
+    img = jnp.full((2, 64, 64, 3 + cfg.num_state_dim), 0.3)
+    a = policy.apply(variables, img, rngs={'dropout': jax.random.PRNGKey(1)})
+    b = policy.apply(variables, img, rngs={'dropout': jax.random.PRNGKey(1)})
+    c = policy.apply(variables, img, rngs={'dropout': jax.random.PRNGKey(2)})
+    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
+    assert not np.array_equal(np.asarray(a[1]), np.asarray(c[1]))
+    with pytest.raises(ValueError, match='dropout'):
+        policy.apply(variables, img)

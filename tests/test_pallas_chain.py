@@ -1,16 +1,29 @@
-"""Fused Pallas chain kernel vs the composed jnp filter chain: bit-near
-equality on random trajectories (interpreter mode on CPU; the same kernel
-compiles for TPU)."""
+"""Fused chain replay kernel vs the composed jnp filter chain: bit-near
+equality on random trajectories (Pallas interpret mode on the CPU), the
+wrapper's shapes and tail masking, its lowering for the GPU, and the
+platform choice between kernel and jnp chain.  Tests marked ``gpu`` run
+the kernel as compiled for the card and skip without one."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exposure_tpu.ops.chain import apply_filter_chain
-from exposure_tpu.ops.filters import max_filter_parameters
-from exposure_tpu.ops.pallas_chain import pallas_apply_filter_chain
-from exposure_tpu.utils import load_config
+from exposure_jax.ops import pallas_chain
+from exposure_jax.ops.chain import (
+    F32_TOL,
+    SPREAD_FACTOR,
+    apply_filter_chain,
+    replay_filter_chain,
+    replay_mismatch,
+    rounding_spread,
+)
+from exposure_jax.ops.filters import LevelFilter, max_filter_parameters
+from exposure_jax.ops.pallas_chain import (
+    pallas_apply_filter_chain,
+    select_chain_replay,
+)
+from exposure_jax.utils import load_config
 
 
 @pytest.fixture(scope='module')
@@ -38,494 +51,321 @@ def random_trajectory(rng, filters, k, b):
     return jnp.asarray(ids), jnp.asarray(params)
 
 
-@pytest.mark.parametrize('shape', [(2, 64, 64), (1, 96, 160)])
-def test_pallas_matches_jnp_chain(rng, cfg, filters, shape):
-    b, h, w = shape
-    img = jnp.asarray(rng.rand(b, h, w, 3).astype(np.float32) * 0.9)
-    ids, params = random_trajectory(rng, filters, cfg.test_steps, b)
-    expected = apply_filter_chain(img, ids, params, filters)
-    got = pallas_apply_filter_chain(img, ids, params, filters,
-                                    tile=(32, 128), interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=3e-5, rtol=1e-4)
-
-
-def test_pallas_respects_active_mask(rng, cfg, filters):
-    img = jnp.asarray(rng.rand(1, 64, 64, 3).astype(np.float32) * 0.9)
-    ids, params = random_trajectory(rng, filters, 5, 1)
-    active = jnp.asarray(np.array([[1], [1], [0], [0], [0]], np.float32))
-    expected = apply_filter_chain(img, ids, params, filters,
-                                  active_steps=active)
-    got = pallas_apply_filter_chain(img, ids, params, filters,
-                                    active_steps=active, tile=(32, 128),
-                                    interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=3e-5, rtol=1e-4)
-
-
-def test_pallas_all_identity_is_noop(rng, cfg, filters):
-    img = jnp.asarray(rng.rand(1, 64, 64, 3).astype(np.float32))
-    ids = jnp.zeros((3, 1), jnp.int32)
-    params = jnp.zeros((3, 1, max_filter_parameters(filters)), jnp.float32)
-    active = jnp.zeros((3, 1), jnp.float32)
-    got = pallas_apply_filter_chain(img, ids, params, filters,
-                                    active_steps=active, tile=(32, 128),
-                                    interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(img), atol=1e-6)
-
-
-def test_uint8_serving_path(rng, cfg, filters):
-    # fixed-point [0,1] uint8 I/O must match the f32 chain within 1 LSB
-    img8 = (rng.rand(1, 64, 128, 3) * 255).astype(np.uint8)
-    ids, params = random_trajectory(rng, filters, 3, 1)
-    got = pallas_apply_filter_chain(jnp.asarray(img8), ids, params,
-                                    filters, tile=(32, 128), interpret=True)
+def assert_u8_close(got, img8, ids, params, filters, **kw):
+    """uint8 kernel output within 1 LSB of the f32 jnp chain on the
+    dequantized input."""
     assert got.dtype == jnp.uint8
-    f32 = jnp.asarray(img8.astype(np.float32) / 255.0)
-    expected = apply_filter_chain(f32, ids, params, filters)
-    expected8 = np.round(np.clip(np.asarray(expected), 0, 1) * 255.0)
+    f32 = jnp.asarray(np.asarray(img8).astype(np.float32) / 255.0)
+    expected = apply_filter_chain(f32, ids, params, filters, **kw)
+    expected8 = np.floor(np.clip(np.asarray(expected), 0, 1) * 255 + 0.5)
     diff = np.abs(np.asarray(got).astype(np.int32) -
                   expected8.astype(np.int32))
     assert diff.max() <= 1, diff.max()
 
 
-def test_fast_math_matches_jnp_chain(rng, cfg, filters):
-    # polynomial pow/cos + Newton rcp + relu-form curves: f32 within
-    # the 1e-4 budget, u8 within 1 LSB of the exact jnp chain
-    img = jnp.asarray(rng.rand(2, 64, 64, 3).astype(np.float32) * 0.9)
-    ids, params = random_trajectory(rng, filters, cfg.test_steps, 2)
-    expected = apply_filter_chain(img, ids, params, filters)
-    got = pallas_apply_filter_chain(img, ids, params, filters,
-                                    tile=(32, 128), interpret=True,
-                                    fast_math=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=1e-4, rtol=1e-3)
-
-    img8 = (rng.rand(1, 64, 128, 3) * 255).astype(np.uint8)
-    ids, params = random_trajectory(rng, filters, 3, 1)
-    got8 = pallas_apply_filter_chain(jnp.asarray(img8), ids, params,
-                                     filters, tile=(32, 128),
-                                     interpret=True, fast_math=True)
-    f32 = jnp.asarray(img8.astype(np.float32) / 255.0)
-    exp8 = np.round(np.clip(np.asarray(
-        apply_filter_chain(f32, ids, params, filters)), 0, 1) * 255.0)
-    diff = np.abs(np.asarray(got8).astype(np.int32) - exp8.astype(np.int32))
-    assert diff.max() <= 1, diff.max()
+_FILTER_NAMES = ['ExposureFilter', 'GammaFilter',
+                 'ImprovedWhiteBalanceFilter', 'SaturationPlusFilter',
+                 'ToneFilter', 'ContrastFilter', 'WNBFilter', 'ColorFilter',
+                 'LevelFilter']
 
 
-def test_fast_math_static_kernel(rng, cfg, filters):
-    from exposure_tpu.ops.pallas_chain import \
-        pallas_apply_filter_chain_static
-    img = jnp.asarray(rng.rand(2, 64, 64, 3).astype(np.float32) * 0.9)
-    k = 4
-    sig = tuple(rng.randint(0, len(filters), k))
-    ids = jnp.asarray(np.tile(np.asarray(sig, np.int32)[:, None], (1, 2)))
-    _, params = random_trajectory(rng, filters, k, 2)
-    # overwrite ids-dependent params with the signature's filters
-    params = np.zeros(np.asarray(params).shape, np.float32)
-    for s_i, fid in enumerate(sig):
-        f = filters[fid]
-        n = f.get_num_filter_parameters()
-        raw = rng.randn(2, n).astype(np.float32)
-        reg = np.asarray(f.filter_param_regressor(jnp.asarray(raw)))
-        params[s_i, :, :n] = reg
-    params = jnp.asarray(params)
-    expected = apply_filter_chain(img, ids, params, filters)
-    got = pallas_apply_filter_chain_static(img, sig, params, filters,
-                                           tile=(32, 128), interpret=True,
-                                           fast_math=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=1e-4, rtol=1e-3)
-
-
-def test_fast_math_manufactured_gray_pixels(rng, cfg, filters):
-    # The S+ (HSV) filter is discontinuous at exact gray.  A chain that
-    # overexposes and then saturates the per-channel color curve maps
-    # whole regions to EXACTLY gray; the fast kernels' ~1e-6 upstream
-    # differences must not flip those pixels across the discontinuity
-    # (ops/pallas_chain.py::_saturation_fast pins a 2e-4 gray band).
-    names = [type(f).__name__ for f in filters]
-    e_id = names.index('ExposureFilter')
-    c_id = names.index('ColorFilter')
-    s_id = names.index('SaturationPlusFilter')
-    b = 1
-    img = jnp.asarray(rng.rand(b, 64, 128, 3).astype(np.float32) * 0.9)
-    ids = jnp.asarray(np.array([[e_id], [c_id], [e_id], [s_id]],
-                               np.int32))
-    max_p = max_filter_parameters(filters)
-    params = np.zeros((4, b, max_p), np.float32)
-    params[0, :, 0] = 2.0 ** 3.0          # massive overexposure
-    params[1, :, :24] = np.asarray(filters[c_id].filter_param_regressor(
-        jnp.asarray(rng.randn(b, 24).astype(np.float32))))
-    params[2, :, 0] = 0.6                  # back into range -> midtones
-    params[3, :, 0] = 0.9                  # strong saturation boost
-    params = jnp.asarray(params)
-    expected = apply_filter_chain(img, ids, params, filters)
-    exp8 = np.round(np.clip(np.asarray(expected), 0, 1) * 255.0)
-    got = pallas_apply_filter_chain(img, ids, params, filters,
-                                    tile=(32, 128), interpret=True,
-                                    fast_math=True)
-    got8 = np.round(np.clip(np.asarray(got), 0, 1) * 255.0)
-    diff = np.abs(got8 - exp8)
-    # overexposed regions collapse to exact gray; fast and exact paths
-    # must agree there (hue-0 special case), leaving at most a
-    # negligible fraction of band-edge pixels
-    assert (diff > 1).mean() <= 1e-4, (diff.max(), (diff > 1).sum())
-
-
-def test_masked_chain_matches_jnp(rng, cfg):
-    # with cfg.masking on, the kernel evaluates the spatial masks from
-    # the global pixel grid; must match the jnp chain
-    mcfg = cfg.copy()
-    mcfg.masking = True
-    mfilters = [f(mcfg) for f in mcfg.filters]
-    img = jnp.asarray(rng.rand(2, 64, 128, 3).astype(np.float32) * 0.9)
-    ids, params = random_trajectory(rng, mfilters, 3, 2)
-    mask = jnp.asarray(rng.randn(3, 2, 6).astype(np.float32))
-    expected = apply_filter_chain(img, ids, params, mfilters,
-                                  mask_params=mask)
-    got = pallas_apply_filter_chain(img, ids, params, mfilters,
-                                    mask_params=mask, tile=(32, 128),
-                                    interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=5e-5, rtol=1e-4)
-
-
-def test_masked_chain_nonsquare_grid(rng, cfg):
-    # the mask grid depends on min(H, W) centering; exercise a tall image
-    mcfg = cfg.copy()
-    mcfg.masking = True
-    mfilters = [f(mcfg) for f in mcfg.filters]
-    img = jnp.asarray(rng.rand(1, 96, 128, 3).astype(np.float32) * 0.8)
-    ids, params = random_trajectory(rng, mfilters, 2, 1)
-    mask = jnp.asarray(rng.randn(2, 1, 6).astype(np.float32) * 2)
-    expected = apply_filter_chain(img, ids, params, mfilters,
-                                  mask_params=mask)
-    got = pallas_apply_filter_chain(img, ids, params, mfilters,
-                                    mask_params=mask, tile=(32, 128),
-                                    interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=5e-5, rtol=1e-4)
-
-
-def test_every_single_filter_matches(rng, cfg, filters):
-    # one-step chains isolating each filter
-    img = jnp.asarray(rng.rand(1, 32, 128, 3).astype(np.float32) * 0.9)
-    max_p = max_filter_parameters(filters)
-    for fid, f in enumerate(filters):
-        n = f.get_num_filter_parameters()
-        raw = rng.randn(1, n).astype(np.float32)
-        reg = np.asarray(f.filter_param_regressor(jnp.asarray(raw)))
-        params = np.zeros((1, 1, max_p), np.float32)
-        params[0, 0, :n] = reg.reshape(-1)
-        ids = jnp.full((1, 1), fid, jnp.int32)
-        expected = apply_filter_chain(img, ids, jnp.asarray(params), filters)
-        got = pallas_apply_filter_chain(img, ids, jnp.asarray(params),
-                                        filters, tile=(32, 128),
-                                        interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(expected), atol=3e-5, rtol=1e-4,
-            err_msg='filter %s' % f.get_short_name())
-
-
-def test_bf16_compute_mode(rng, cfg, filters):
-    # opt-in bf16 in-kernel math: same chain within bf16 precision
-    img8 = (rng.rand(2, 64, 128, 3) * 255).astype(np.uint8)
-    ids, params = random_trajectory(rng, filters, 5, 2)
-    f32 = pallas_apply_filter_chain(jnp.asarray(img8), ids, params,
-                                    filters, tile=(32, 128),
-                                    interpret=True)
-    bf16 = pallas_apply_filter_chain(jnp.asarray(img8), ids, params,
-                                     filters, tile=(32, 128),
-                                     interpret=True,
-                                     compute_dtype=jnp.bfloat16)
-    diff = np.abs(np.asarray(f32).astype(np.int32) -
-                  np.asarray(bf16).astype(np.int32))
-    assert diff.max() <= 8, diff.max()  # ~0.4% relative over 5 steps
-    assert diff.mean() < 2.0
-
-
-def test_static_chain_matches_switch(rng, cfg, filters):
-    from exposure_tpu.ops.pallas_chain import (
-        pallas_apply_filter_chain_static,
-    )
-    img = jnp.asarray(rng.rand(3, 64, 128, 3).astype(np.float32) * 0.9)
-    sig = (0, 2, 1, 0, 3)
-    ids = jnp.asarray(np.tile(np.asarray(sig, np.int32)[:, None], (1, 3)))
-    _, params = random_trajectory(rng, filters, 5, 3)
-    expected = pallas_apply_filter_chain(img, ids, params, filters,
-                                         tile=(32, 128), interpret=True)
-    got = pallas_apply_filter_chain_static(img, sig, params, filters,
-                                           tile=(32, 128), interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=1e-6)
-
-
-def test_grouped_runner_matches_switch(rng, cfg, filters):
-    from exposure_tpu.ops.pallas_chain import GroupedChainRunner
-    b = 6
-    img8 = (rng.rand(b, 64, 128, 3) * 255).astype(np.uint8)
-    ids, params = random_trajectory(rng, filters, 4, b)
-    runner = GroupedChainRunner(filters, interpret=True)
-    got = runner(jnp.asarray(img8), ids, params)
-    expected = pallas_apply_filter_chain(jnp.asarray(img8), ids, params,
-                                         filters, tile=(32, 128),
-                                         interpret=True)
-    diff = np.abs(np.asarray(got).astype(np.int32) -
-                  np.asarray(expected).astype(np.int32))
-    assert diff.max() <= 1, diff.max()
-    assert got.dtype == np.uint8
-
-
-def test_grouped_runner_active_mask_and_fallback(rng, cfg, filters):
-    from exposure_tpu.ops.pallas_chain import GroupedChainRunner
-    b = 4
-    img = jnp.asarray(rng.rand(b, 64, 64, 3).astype(np.float32) * 0.9)
-    ids, params = random_trajectory(rng, filters, 3, b)
-    active = jnp.asarray(np.asarray(
-        [[1] * b, [1] * b, [0] * b], np.float32))
-    expected = pallas_apply_filter_chain(img, ids, params, filters,
-                                         active_steps=active,
-                                         tile=(32, 128), interpret=True)
-    runner = GroupedChainRunner(filters, interpret=True)
-    got = runner(img, ids, params, active_steps=active)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=1e-6)
-    # fallback path: force max_signatures=0
-    runner0 = GroupedChainRunner(filters, interpret=True,
-                                 max_signatures=0)
-    got0 = runner0(img, ids, params, active_steps=active)
-    np.testing.assert_allclose(np.asarray(got0), np.asarray(expected),
-                               atol=1e-6)
-
-
-def test_grouped_runner_masked(rng, cfg):
-    from exposure_tpu.ops.pallas_chain import GroupedChainRunner
-    mcfg = cfg.copy()
-    mcfg.masking = True
-    mfilters = [f(mcfg) for f in mcfg.filters]
-    b = 3
-    img = jnp.asarray(rng.rand(b, 64, 128, 3).astype(np.float32) * 0.9)
-    ids, params = random_trajectory(rng, mfilters, 3, b)
-    mask = jnp.asarray(rng.randn(3, b, 6).astype(np.float32))
-    expected = pallas_apply_filter_chain(img, ids, params, mfilters,
-                                         mask_params=mask,
-                                         tile=(32, 128), interpret=True)
-    runner = GroupedChainRunner(mfilters, interpret=True)
-    got = runner(img, ids, params, mask_params=mask)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=5e-5, rtol=1e-4)
-
-
-def test_grouped_runner_per_group_accumulate(rng, cfg, filters):
-    """fused_set_limit=0 forces the per-(signature,bucket) accumulate
-    path (cached programs survive signature-set churn); small groups
-    merge through one switch call.  Must match the jnp-equivalent switch
-    chain exactly, across two batches with different signature sets."""
-    from exposure_tpu.ops.pallas_chain import GroupedChainRunner
-    runner = GroupedChainRunner(filters, interpret=True,
-                                fused_set_limit=0, merge_below=4)
-    for seed in (3, 4):
-        r2 = np.random.RandomState(seed)
-        b = 10
-        img = jnp.asarray(r2.rand(b, 64, 128, 3).astype(np.float32) * .9)
-        ids, params = random_trajectory(r2, filters, 4, b)
-        # skew grouping: most images share one signature, a few are
-        # unique (exercises big-group + merged-remainder together)
-        ids = np.array(ids)
-        ids[:, : b - 3] = ids[:, :1]
-        params = np.array(params)
-        params[:, : b - 3] = params[:, :1]
-        ids, params = jnp.asarray(ids), jnp.asarray(params)
-        expected = pallas_apply_filter_chain(img, ids, params, filters,
-                                             tile=(32, 128),
-                                             interpret=True)
-        got = runner(img, ids, params)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                                   atol=1e-6)
-    # programs were cached per (sig, bucket): across the two sets the
-    # runner compiled zero fused multi-variants
-    assert not any(k2[0] == 'multi' for k2 in runner._fns)
-    assert any(k2[0] == 'acc' for k2 in runner._fns)
-    assert any(k2[0] == 'mergerem' for k2 in runner._fns)
-
-
-def test_grouped_runner_fused_set_limit_switchover(rng, cfg, filters):
-    """The first ``fused_set_limit`` distinct signature sets compile the
-    one-dispatch fused program; later NEW sets use per-group programs,
-    while an already-compiled fused set keeps hitting its cache."""
-    from exposure_tpu.ops.pallas_chain import GroupedChainRunner
-    runner = GroupedChainRunner(filters, interpret=True,
-                                fused_set_limit=1, merge_below=2)
-    b = 6
-    r2 = np.random.RandomState(7)
-    img = jnp.asarray(r2.rand(b, 64, 128, 3).astype(np.float32) * .9)
-    ids1, params1 = random_trajectory(r2, filters, 3, b)
-    out1 = runner(img, ids1, params1)
-    n_multi = sum(1 for k2 in runner._fns if k2[0] == 'multi')
-    assert n_multi == 1
-    # different signature set -> per-group path, no new fused variant
-    ids2, params2 = random_trajectory(np.random.RandomState(8), filters,
-                                      3, b)
-    out2 = runner(img, ids2, params2)
-    assert sum(1 for k2 in runner._fns if k2[0] == 'multi') == 1
-    exp1 = pallas_apply_filter_chain(img, ids1, params1, filters,
-                                     tile=(32, 128), interpret=True)
-    exp2 = pallas_apply_filter_chain(img, ids2, params2, filters,
-                                     tile=(32, 128), interpret=True)
-    np.testing.assert_allclose(np.asarray(out1), np.asarray(exp1),
-                               atol=1e-6)
-    np.testing.assert_allclose(np.asarray(out2), np.asarray(exp2),
-                               atol=1e-6)
-
-
-@pytest.mark.parametrize('dispatch', ['when', 'switch', 'tree'])
 @pytest.mark.parametrize('dtype', ['float32', 'uint8'])
-def test_dynamic_chain_matches_jnp(rng, cfg, filters, dtype, dispatch):
-    """The dynamic kernel's three dispatch modes (flat pl.when guards,
-    per-step lax.switch, two-level guard tree — VERDICT r4 #5 probes):
-    per-image ids, selected-branch-only cost, no host grouping — each
-    must match the jnp chain on a signature-diverse batch."""
-    from exposure_tpu.ops.pallas_chain import (
-        pallas_apply_filter_chain_dynamic,
-    )
-    b = 4
-    img_f = rng.rand(b, 64, 96, 3).astype(np.float32) * 0.9
-    ids, params = random_trajectory(rng, filters, cfg.test_steps, b)
+@pytest.mark.parametrize('name', _FILTER_NAMES)
+def test_single_filter_matches_filters_module(rng, cfg, filters, name,
+                                              dtype):
+    # one-step chains isolating each filter against ops/filters.py
+    bank = filters + [LevelFilter(cfg)]
+    fid = [type(f).__name__ for f in bank].index(name)
+    f = bank[fid]
+    b = 2
+    img_f = rng.rand(b, 24, 40, 3).astype(np.float32) * 0.9
+    n = f.get_num_filter_parameters()
+    raw = jnp.asarray(rng.randn(b, n).astype(np.float32))
+    params = np.zeros((1, b, max_filter_parameters(bank)), np.float32)
+    params[0, :, :n] = np.asarray(f.filter_param_regressor(raw))
+    params = jnp.asarray(params)
+    ids = jnp.full((1, b), fid, jnp.int32)
     if dtype == 'uint8':
-        img = jnp.asarray((img_f * 255).astype(np.uint8))
-        ref_in = img.astype(jnp.float32) / 255.0
+        img8 = (img_f * 255).astype(np.uint8)
+        got = pallas_apply_filter_chain(jnp.asarray(img8), ids, params,
+                                        bank, interpret=True)
+        assert_u8_close(got, img8, ids, params, bank)
     else:
-        img = jnp.asarray(img_f)
-        ref_in = img
-    expected = apply_filter_chain(ref_in, ids, params, filters)
-    got = pallas_apply_filter_chain_dynamic(
-        img, ids, params, filters, tile=(32, 128), interpret=True,
-        dispatch=dispatch)
-    if dtype == 'uint8':
-        exp_u8 = np.asarray(jnp.round(jnp.clip(expected, 0, 1) * 255)
-                            .astype(jnp.uint8)).astype(np.int64)
-        err = np.abs(np.asarray(got).astype(np.int64) - exp_u8)
-        assert err.max() <= 1, 'u8 dynamic chain off by %d LSB' % err.max()
-    else:
+        expected, _, _ = f.apply(jnp.asarray(img_f),
+                                 specified_parameter=params[0, :, :n])
+        got = pallas_apply_filter_chain(jnp.asarray(img_f), ids, params,
+                                        bank, interpret=True)
         np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
                                    atol=3e-5, rtol=1e-4)
 
 
-def test_dynamic_chain_active_mask_and_identity(rng, cfg, filters):
-    from exposure_tpu.ops.pallas_chain import (
-        pallas_apply_filter_chain_dynamic,
-    )
+@pytest.mark.parametrize('shape', [(2, 64, 64), (1, 33, 45), (3, 7, 5),
+                                   (1, 40, 52)])
+def test_pallas_matches_jnp_chain(rng, cfg, filters, shape):
+    # pixel counts below, at and not a multiple of the block: the tail
+    # block's loads and stores are masked
+    b, h, w = shape
+    img = jnp.asarray(rng.rand(b, h, w, 3).astype(np.float32) * 0.9)
+    ids, params = random_trajectory(rng, filters, cfg.test_steps, b)
+    expected = apply_filter_chain(img, ids, params, filters)
+    got = pallas_apply_filter_chain(img, ids, params, filters,
+                                    interpret=True)
+    assert got.shape == img.shape
+    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
+                               atol=3e-5, rtol=1e-4)
+
+
+def test_tail_writes_stay_in_bounds(rng, cfg, filters, monkeypatch):
+    # a block larger than the image: masked-out lanes must not touch
+    # the next image's pixels (each image's output depends on its own
+    # trajectory only)
+    monkeypatch.setattr(pallas_chain, 'BLOCK', 64)
+    img = jnp.asarray(rng.rand(3, 5, 7, 3).astype(np.float32) * 0.9)
+    ids, params = random_trajectory(rng, filters, 3, 3)
+    got = pallas_apply_filter_chain(img, ids, params, filters,
+                                    interpret=True)
+    for i in range(3):
+        one = apply_filter_chain(img[i:i + 1], ids[:, i:i + 1],
+                                 params[:, i:i + 1], filters)
+        np.testing.assert_allclose(np.asarray(got[i:i + 1]),
+                                   np.asarray(one), atol=3e-5, rtol=1e-4)
+
+
+def test_pallas_respects_active_mask(rng, cfg, filters):
     img = jnp.asarray(rng.rand(2, 64, 64, 3).astype(np.float32) * 0.9)
     ids, params = random_trajectory(rng, filters, 5, 2)
     active = jnp.asarray(
         np.array([[1, 1], [1, 0], [0, 1], [0, 0], [0, 0]], np.float32))
     expected = apply_filter_chain(img, ids, params, filters,
                                   active_steps=active)
-    got = pallas_apply_filter_chain_dynamic(
-        img, ids, params, filters, active_steps=active,
-        tile=(32, 128), interpret=True)
+    got = pallas_apply_filter_chain(img, ids, params, filters,
+                                    active_steps=active, interpret=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
                                atol=3e-5, rtol=1e-4)
-    # all-identity trajectory: output is the (quantization-exact) input
-    ids0 = jnp.full_like(ids, len(filters))
-    same = pallas_apply_filter_chain_dynamic(
-        img, ids0, params, filters, tile=(32, 128), interpret=True)
-    np.testing.assert_allclose(np.asarray(same), np.asarray(img),
-                               atol=1e-6)
 
 
-def test_dynamic_chain_masked(rng):
-    """Masked config through the dynamic kernel: spatial masks evaluated
-    in-kernel from the global grid, per-image dynamic ids."""
-    from exposure_tpu.ops.pallas_chain import (
-        pallas_apply_filter_chain_dynamic,
-    )
-    cfg = load_config('masked')
-    filters = [f(cfg) for f in cfg.filters]
-    b = 2
-    img = jnp.asarray(rng.rand(b, 64, 96, 3).astype(np.float32) * 0.9)
-    ids, params = random_trajectory(rng, filters, 3, b)
-    max_m = max(f.get_num_mask_parameters() for f in filters)
-    mask = jnp.asarray(rng.randn(3, b, max_m).astype(np.float32))
-    expected = apply_filter_chain(img, ids, params, filters,
+def test_pallas_all_identity_is_noop(rng, cfg, filters):
+    # the identity id and all-inactive steps both pass pixels through
+    # exactly (uint8 round-trips through the dequantize/quantize pair)
+    img_f = rng.rand(2, 32, 48, 3).astype(np.float32)
+    params = jnp.zeros((3, 2, max_filter_parameters(filters)), jnp.float32)
+    for img in (img_f, (img_f * 255).astype(np.uint8)):
+        img = jnp.asarray(img)
+        ids = jnp.full((3, 2), len(filters), jnp.int32)
+        got = pallas_apply_filter_chain(img, ids, params, filters,
+                                        interpret=True)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(img))
+        got0 = pallas_apply_filter_chain(img, jnp.zeros((3, 2), jnp.int32),
+                                         params, filters,
+                                         active_steps=jnp.zeros((3, 2)),
+                                         interpret=True)
+        np.testing.assert_array_equal(np.asarray(got0), np.asarray(img))
+
+
+def test_uint8_serving_path(rng, cfg, filters):
+    # fixed-point [0,1] uint8 I/O must match the f32 chain within 1 LSB
+    img8 = (rng.rand(2, 64, 96, 3) * 255).astype(np.uint8)
+    ids, params = random_trajectory(rng, filters, cfg.test_steps, 2)
+    got = pallas_apply_filter_chain(jnp.asarray(img8), ids, params,
+                                    filters, interpret=True)
+    assert_u8_close(got, img8, ids, params, filters)
+
+
+@pytest.mark.parametrize('shape', [(2, 64, 96), (1, 96, 64)])
+def test_masked_chain_vignet_level(rng, shape):
+    # Vignet and Level with spatial masks: the mask grids come from the
+    # flat pixel index (wide and tall images exercise min(H, W)
+    # centering)
+    mcfg = load_config('masked')
+    mfilters = [f(mcfg) for f in mcfg.filters]
+    b, h, w = shape
+    img = jnp.asarray(rng.rand(b, h, w, 3).astype(np.float32) * 0.9)
+    ids, params = random_trajectory(rng, mfilters, 4, b)
+    names = [type(f).__name__ for f in mfilters]
+    ids = ids.at[0].set(names.index('VignetFilter'))
+    ids = ids.at[1].set(names.index('LevelFilter'))
+    max_m = max(f.get_num_mask_parameters() for f in mfilters)
+    mask = jnp.asarray(rng.randn(4, b, max_m).astype(np.float32))
+    expected = apply_filter_chain(img, ids, params, mfilters,
                                   mask_params=mask)
-    got = pallas_apply_filter_chain_dynamic(
-        img, ids, params, filters, mask_params=mask,
-        tile=(32, 128), interpret=True)
+    got = pallas_apply_filter_chain(img, ids, params, mfilters,
+                                    mask_params=mask, interpret=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
                                atol=5e-5, rtol=1e-4)
 
 
-def test_superset_routing_matches_switch(rng, cfg, filters):
-    """call_superset (round 4): frozen-layout one-dispatch replay must
-    equal the switch reference across every routing case — in-layout
-    group, bucket overflow, signature missing from the layout, and an
-    empty layout slot."""
-    from exposure_tpu.ops.pallas_chain import GroupedChainRunner
-    k = 3
-    nf = len(filters)
-    sig_a = (0, 1, 2)
-    sig_b = (2, 0, nf)          # trailing identity step
-    sig_c = (1, 1, 0)           # NOT in the layout -> leftover merge
-    sig_d = (3 % nf, 0, 1)      # in the layout, absent from the batch
-    cols = [sig_a] * 6 + [sig_b] * 10 + [sig_c] * 2
-    order = rng.permutation(len(cols))
-    cols = [cols[i] for i in order]
-    ids = np.asarray(cols, np.int32).T  # [K, B]
-    b = ids.shape[1]
-    img = jnp.asarray(rng.rand(b, 64, 128, 3).astype(np.float32) * 0.9)
-    max_p = max_filter_parameters(filters)
-    params = jnp.asarray(rng.randn(k, b, max_p).astype(np.float32))
-
-    expected = pallas_apply_filter_chain(
-        img, jnp.asarray(ids), params, filters, tile=(32, 128),
-        interpret=True)
-    runner = GroupedChainRunner(filters, interpret=True)
-    # bucket 8 overflows sig_b's 10 images: 2 must fall to the merge
-    layout = ((sig_a, 8), (sig_b, 8), (sig_d, 8))
-    got = runner.call_superset(img, ids, params, layout)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=1e-5, rtol=1e-4)
-    # same batch again: only cached programs (one multi + one merge)
-    n_before = len(runner._fns)
-    got2 = runner.call_superset(img, ids, params, layout)
-    assert len(runner._fns) == n_before
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(got2))
-    # single-signature batch takes the whole-batch static fast path
-    ids_one = np.tile(np.asarray(sig_a, np.int32)[:, None], (1, b))
-    got1 = runner.call_superset(img, ids_one, params, layout)
-    exp1 = pallas_apply_filter_chain(
-        img, jnp.asarray(ids_one), params, filters, tile=(32, 128),
-        interpret=True)
-    np.testing.assert_allclose(np.asarray(got1), np.asarray(exp1),
-                               atol=1e-5, rtol=1e-4)
+def test_replay_filter_chain_contract(rng, cfg, filters):
+    # the jnp replay used on the CPU shares the kernel's I/O contract
+    img8 = jnp.asarray((rng.rand(2, 16, 24, 3) * 255).astype(np.uint8))
+    ids, params = random_trajectory(rng, filters, 3, 2)
+    out = replay_filter_chain(img8, ids, params, filters)
+    assert out.dtype == jnp.uint8 and out.shape == img8.shape
+    kern = pallas_apply_filter_chain(img8, ids, params, filters,
+                                     interpret=True)
+    diff = np.abs(np.asarray(out).astype(np.int32) -
+                  np.asarray(kern).astype(np.int32))
+    assert diff.max() <= 1
+    f32 = img8.astype(jnp.float32) / 255.0
+    np.testing.assert_array_equal(
+        np.asarray(replay_filter_chain(f32, ids, params, filters)),
+        np.asarray(apply_filter_chain(f32, ids, params, filters)))
 
 
-def test_warmup_superset_precompiles_layout(rng, cfg, filters):
-    """warmup_superset compiles the frozen multi program + merge; a
-    live call_superset batch inside the budget touches no new one."""
-    from exposure_tpu.ops.pallas_chain import GroupedChainRunner
-    k = 3
-    sig_a = (0, 1, 2)
-    sig_b = (2, 0, 1)
-    runner = GroupedChainRunner(filters, interpret=True)
-    layout = ((sig_a, 8), (sig_b, 8))
-    n = runner.warmup_superset(layout, (12, 64, 128, 3), jnp.float32,
-                               k, max_filter_parameters(filters),
-                               merge_sizes=(8,))
-    assert n == 2  # multi + merge
-    n_before = len(runner._fns)
-    cols = [sig_a] * 7 + [sig_b] * 3 + [(1, 1, 0)] * 2
-    ids = np.asarray(cols, np.int32).T
-    img = jnp.asarray(rng.rand(12, 64, 128, 3).astype(np.float32) * 0.9)
-    params = jnp.asarray(
-        rng.randn(k, 12, max_filter_parameters(filters))
-        .astype(np.float32))
-    got = runner.call_superset(img, ids, params, layout)
-    assert len(runner._fns) == n_before
-    expected = pallas_apply_filter_chain(
-        img, jnp.asarray(ids), params, filters, tile=(32, 128),
-        interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               atol=1e-5, rtol=1e-4)
+def _mismatch_case(case):
+    """(got, ref, spread) for one ``replay_mismatch`` rule: [1, 4, 4, 3]
+    images off at one value; ``spread`` is 1e-5 there, 0 elsewhere."""
+    if case.startswith('u8'):
+        ref = np.full((1, 4, 4, 3), 100, np.uint8)
+        got = ref.copy()
+        got[0, 1, 2, 0] += int(case[-1])
+        return got, ref, None
+    ref = np.full((1, 4, 4, 3), 0.5, np.float32)
+    got = ref.copy()
+    spread = np.zeros(ref.shape, np.float32)
+    spread[0, 1, 2, 0] = 1e-5
+    err = {'f32 within': 1.9e-5, 'f32 over': 2.2e-5,
+           'spread eases': 5e-5, 'past the spread': 7e-5}.get(case)
+    if case == 'f32 nan':
+        got[0, 0, 0, 1] = np.nan
+    elif case == 'f32 inf ref':
+        ref[0, 0, 0, 1] = np.inf
+    else:
+        got[0, 1, 2, 0] += err
+    return got, ref, None if case == 'f32 over' else spread
+
+
+@pytest.mark.parametrize('case,bad,eased', [
+    ('u8 off by 1', 0, 0),
+    ('u8 off by 2', 1, 0),
+    ('f32 within', 0, 0),
+    ('f32 over', 1, 0),
+    ('f32 nan', 1, 0),
+    ('f32 inf ref', 1, 0),
+    ('spread eases', 0, 1),
+    ('past the spread', 1, 0),
+])
+def test_replay_mismatch_rules(monkeypatch, case, bad, eased):
+    # the replay tolerance: 1 LSB, 2e-5 absolute, non-finite values fail,
+    # and a float32 value may use SPREAD_FACTOR x the chain's own spread
+    from exposure_jax.ops import chain
+    monkeypatch.setattr(chain, 'SPREAD_FRAC', 0.1)
+    got, ref, spread = _mismatch_case(case)
+    worst, n_bad, n_eased = replay_mismatch(got, ref, spread)
+    assert (n_bad, n_eased) == (bad, eased)
+    if 'nan' in case or 'inf' in case:
+        assert worst == np.inf
+
+
+def test_replay_mismatch_spread_fraction():
+    # more pixels needing the allowance than SPREAD_FRAC of the image
+    # (here one of 16) lose it: all of them count as bad
+    got, ref, spread = _mismatch_case('spread eases')
+    assert replay_mismatch(got, ref, spread)[1:] == (1, 0)
+
+
+def _two_step(filters, pixel, first='ExposureFilter'):
+    """A [first (no-op parameters), S+ at full strength] chain on one
+    pixel: (img, ids, params)."""
+    names = [type(f).__name__ for f in filters]
+    ids = jnp.asarray([[names.index(first)],
+                       [names.index('SaturationPlusFilter')]], jnp.int32)
+    params = np.zeros((2, 1, max_filter_parameters(filters)), np.float32)
+    params[1] = 1.0  # S+ strength 1; exposure 0 stops is the identity
+    img = jnp.asarray(np.array(pixel, np.float32).reshape(1, 1, 1, 3))
+    return img, ids, jnp.asarray(params)
+
+
+@pytest.mark.parametrize('pixel,ill', [
+    ((0.5, 0.5001, 0.4999), True),    # range 0.04% of the value
+    ((0.5, 0.6, 0.3), False),
+])
+def test_rounding_spread(filters, pixel, ill):
+    # the chain's own spread is large where an S+ step sees a near-gray
+    # pixel and about PERTURB x the value elsewhere; inactive steps add
+    # none
+    img, ids, params = _two_step(filters, pixel)
+    spread = float(rounding_spread(img, ids, params, filters).max())
+    assert (spread > F32_TOL) == ill, spread
+    assert spread < (1e-3 if ill else 1e-6)
+    off = rounding_spread(img, ids, params, filters,
+                          active_steps=jnp.zeros((2, 1)))
+    assert not np.asarray(off).any()
+
+
+def test_saturation_amplifies_near_gray_differences(filters):
+    # why the allowance exists: at a near-gray pixel the jnp chain's own
+    # S+ output moves by more than F32_TOL when one input channel moves
+    # by one float32 step, and the chain's spread covers that move
+    img, ids, params = _two_step(filters, (0.5, 0.5001, 0.4999))
+    nudged = np.asarray(img).copy()
+    nudged[..., 0] = np.nextafter(nudged[..., 0], np.float32(1))
+    out = [np.asarray(apply_filter_chain(x, ids, params, filters))
+           for x in (img, jnp.asarray(nudged))]
+    move = np.abs(out[0] - out[1]).max()
+    spread = float(rounding_spread(img, ids, params, filters).max())
+    assert F32_TOL < move <= F32_TOL + SPREAD_FACTOR * spread, (move,
+                                                                 spread)
+
+
+@pytest.mark.parametrize('platform,expected', [
+    ('cpu', replay_filter_chain),
+    ('gpu', pallas_apply_filter_chain),
+    ('rocm', NotImplementedError),
+])
+def test_select_chain_replay(monkeypatch, platform, expected):
+    monkeypatch.setattr(jax, 'default_backend', lambda: platform)
+    if expected is NotImplementedError:
+        with pytest.raises(NotImplementedError, match=platform):
+            select_chain_replay()
+    else:
+        assert select_chain_replay() is expected
+    # interpret mode only when asked for, on any platform
+    fn = select_chain_replay(interpret=True)
+    assert fn.func is pallas_apply_filter_chain
+    assert fn.keywords == {'interpret': True}
+
+
+@pytest.mark.parametrize('dtype,masked', [(jnp.uint8, False),
+                                          (jnp.float32, False),
+                                          (jnp.uint8, True)])
+def test_kernel_lowers_for_gpu(rng, dtype, masked):
+    # the kernel lowers to Triton IR for CUDA without a card: every
+    # primitive has a Triton lowering and every block is a power of two
+    cfg = load_config('masked' if masked else 'test')
+    fs = [f(cfg) for f in cfg.filters]
+    img = jnp.zeros((2, 40, 52, 3), dtype)
+    ids = jnp.asarray(rng.randint(0, len(fs) + 1, (5, 2)).astype(np.int32))
+    params = jnp.zeros((5, 2, max_filter_parameters(fs)), jnp.float32)
+    mask = jnp.zeros((5, 2, 6), jnp.float32) if masked else None
+    fn = jax.jit(lambda im, i, p, m: pallas_apply_filter_chain(
+        im, i, p, fs, mask_params=m))
+    text = fn.trace(img, ids, params, mask).lower(
+        lowering_platforms=('cuda',)).as_text()
+    assert 'xla.gpu.triton' in text
+
+
+@pytest.fixture
+def gpu():
+    """Skips the test unless JAX runs on a GPU (decided at run time, so
+    every worker collects the same tests)."""
+    if jax.default_backend() != 'gpu':
+        pytest.skip('needs a GPU: the kernel compiles only for the card')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_kernel_on_card_matches_jnp_chain(gpu, rng, filters, dtype):
+    b, h, w = 3, 257, 383
+    img = rng.rand(b, h, w, 3).astype(np.float32) * 0.9
+    if dtype == 'uint8':
+        img = (img * 255).astype(np.uint8)
+    img = jnp.asarray(img)
+    ids, params = random_trajectory(rng, filters, 5, b)
+    got = jax.jit(lambda *a: pallas_apply_filter_chain(*a, filters))(
+        img, ids, params)
+    ref = jax.jit(lambda *a: replay_filter_chain(*a, filters))(
+        img, ids, params)
+    spread = None if dtype == 'uint8' else jax.jit(
+        lambda *a: rounding_spread(*a, filters))(img, ids, params)
+    worst, n_bad, _ = replay_mismatch(got, ref, spread)
+    assert n_bad == 0, worst

@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from exposure_tpu.core.replay import (
+from exposure_jax.core.replay import (
     PoolState,
     reinsert,
     sample_terminated,
     select_generator_batch,
 )
-from exposure_tpu.utils.ops import STATE_STEP_DIM, STATE_STOPPED_DIM
+from exposure_jax.utils.ops import STATE_STEP_DIM, STATE_STOPPED_DIM
 
 P, B, S, D = 32, 8, 4, 11
 

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exposure_tpu.core.rollout import rollout
-from exposure_tpu.core.trainer import build_models, init_train_state
-from exposure_tpu.utils import load_config
-from exposure_tpu.utils.ops import (
+from exposure_jax.core.rollout import rollout
+from exposure_jax.core.trainer import build_models, init_train_state
+from exposure_jax.utils import load_config
+from exposure_jax.utils.ops import (
     STATE_STEP_DIM,
     STATE_STOPPED_DIM,
 )

@@ -4,7 +4,7 @@ reference's statistical smoke check, pdf_sample_layer.py:55-78)."""
 import jax.numpy as jnp
 import numpy as np
 
-from exposure_tpu.ops import pdf_sample
+from exposure_jax.ops import pdf_sample
 
 
 def test_exact_boundaries():

@@ -1,10 +1,11 @@
-"""serve_rollout: the selected-branch-only serving plan (round 5).
+"""serve_rollout: the selected-branch-only serving plan.
 
 The training rollout applies ALL K filters per step and blends by the
 one-hot selection (the differentiable formulation, reference
 agent.py:58-77,124-125); ``serve_rollout`` regresses every parameter
 head but advances the proxy through the SELECTED filter only, via the
-dynamic Pallas chain kernel.  These tests pin the parity contract:
+chain replay (here the Pallas kernel in interpret mode).  These tests
+pin the parity contract:
 
 - step-0 actions/params are bit-identical to ``rollout(is_train=0)``
   (same input proxy -> same CNN -> same pdf -> same argmax);
@@ -18,10 +19,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exposure_tpu.core.rollout import rollout, serve_rollout
-from exposure_tpu.core.serving import RetouchPipeline
-from exposure_tpu.core.trainer import build_models, init_train_state
-from exposure_tpu.utils import load_config
+from exposure_jax.core.rollout import rollout, serve_rollout
+from exposure_jax.core.serving import RetouchPipeline
+from exposure_jax.core.trainer import build_models, init_train_state
+from exposure_jax.ops.chain import replay_filter_chain
+from exposure_jax.ops.pallas_chain import select_chain_replay
+from exposure_jax.utils import load_config
+
+def kernel_pipeline(cfg, state):
+    """A pipeline replaying through the kernel in interpret mode."""
+    pipe = RetouchPipeline(cfg, state)
+    pipe.replay = select_chain_replay(interpret=True)
+    return pipe
+
 
 
 @pytest.fixture(scope='module')
@@ -43,7 +53,7 @@ def _plans(setup, batch=6, seed=0):
                    filters=filters, is_train=0)
     ids, params, mask = serve_rollout(
         policy, state.gen_params, proxy, key, cfg=cfg, filters=filters,
-        interpret=True, fast_math=True)
+        replay=select_chain_replay(interpret=True))
     return traj, np.asarray(ids), np.asarray(params), np.asarray(mask)
 
 
@@ -90,9 +100,7 @@ def test_divergence_only_at_near_ties(setup):
 
 def test_pipeline_selected_plan_end_to_end(setup):
     cfg, filters, policy, state = setup
-    pipe = RetouchPipeline(cfg, state, use_pallas=True, interpret=True,
-                           dynamic=True, selected_plan=True)
-    assert pipe.dynamic and pipe.selected_plan
+    pipe = kernel_pipeline(cfg, state)
     rng = np.random.RandomState(2)
     imgs = (rng.rand(2, 64, 128, 3) * 255).astype(np.uint8)
     out = pipe(imgs, seed=3)
@@ -102,20 +110,23 @@ def test_pipeline_selected_plan_end_to_end(setup):
 
 
 def test_selected_plan_output_near_bank_plan(setup):
-    # end-to-end outputs of the two plan variants agree wherever no
-    # action flipped; rows that flipped are equally valid trajectories
-    # (near-tie argmax), bounded in number by the near-tie measure
+    # end-to-end outputs of the selected plan and the training rollout's
+    # bank plan agree wherever no action flipped; rows that flipped are
+    # equally valid trajectories (near-tie argmax), bounded in number by
+    # the near-tie measure
     cfg, filters, policy, state = setup
     rng = np.random.RandomState(3)
     imgs = (rng.rand(4, 64, 128, 3) * 255).astype(np.uint8)
-    pipe_sel = RetouchPipeline(cfg, state, use_pallas=True,
-                               interpret=True, dynamic=True,
-                               selected_plan=True)
-    pipe_bank = RetouchPipeline(cfg, state, use_pallas=True,
-                                interpret=True, dynamic=True,
-                                selected_plan=False)
-    a = pipe_sel(imgs, seed=4)
-    b = pipe_bank(imgs, seed=4)
+    pipe = kernel_pipeline(cfg, state)
+    a = pipe(imgs, seed=4)
+    key = jax.random.fold_in(jax.random.PRNGKey(4), 0)
+    proxy = jax.image.resize(
+        jnp.asarray(imgs).astype(jnp.float32) / 255.0,
+        (4, cfg.source_img_size, cfg.source_img_size, 3), 'linear')
+    traj = rollout(policy, state.gen_params, proxy, key, cfg=cfg,
+                   filters=filters, is_train=0)
+    b = np.asarray(replay_filter_chain(jnp.asarray(imgs), traj.filter_ids,
+                                       traj.params, filters))
     row_close = np.array([
         np.abs(a[i].astype(np.int32) - b[i].astype(np.int32)).max() <= 2
         for i in range(a.shape[0])])

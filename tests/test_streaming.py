@@ -8,14 +8,14 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from exposure_tpu.core.replay import PoolState
-from exposure_tpu.core.steps import build_streaming_outer_step
-from exposure_tpu.core.train_state import TrainState, make_optimizer
-from exposure_tpu.data.synthetic import make_synthetic_pack
-from exposure_tpu.models import CriticNet, PolicyNet
-from exposure_tpu.parallel.mesh import DATA_AXIS, data_parallel_mesh
-from exposure_tpu.utils import load_config
-from exposure_tpu.utils.ops import STATE_STEP_DIM
+from exposure_jax.core.replay import PoolState
+from exposure_jax.core.steps import build_streaming_outer_step
+from exposure_jax.core.train_state import TrainState, make_optimizer
+from exposure_jax.data.synthetic import make_synthetic_pack
+from exposure_jax.models import CriticNet, PolicyNet
+from exposure_jax.parallel.mesh import DATA_AXIS, data_parallel_mesh
+from exposure_jax.utils import load_config
+from exposure_jax.utils.ops import STATE_STEP_DIM
 
 
 @pytest.fixture(scope='module')
@@ -83,7 +83,7 @@ def test_streaming_fused_match_sequential(setup, rng):
     # key fold_in(it_key, 0) + c-phase call with fold_in(it_key, 1))
     # exactly, including RNG folding, on the same data slices.
     cfg, mesh, filters, policy, critic, value, tx, state, pool = setup
-    from exposure_tpu.core.steps import build_streaming_fused_step
+    from exposure_jax.core.steps import build_streaming_fused_step
     giters, citers, n = 1, 2, 3
     b, p = cfg.batch_size, cfg.replay_memory_size
     g_all = jnp.asarray(

@@ -8,16 +8,16 @@ import sys
 import numpy as np
 import pytest
 
-from exposure_tpu.data.synthetic import make_synthetic_pack
-from exposure_tpu.utils import load_config
+from exposure_jax.data.synthetic import make_synthetic_pack
+from exposure_jax.utils import load_config
 
 
 @pytest.fixture(scope='module')
 def native_packs(tmp_path_factory):
-    from exposure_tpu.native import library_available
+    from exposure_jax.native import library_available
     if not library_available():
         subprocess.check_call(
-            [sys.executable, '-m', 'exposure_tpu.native.build'])
+            [sys.executable, '-m', 'exposure_jax.native.build'])
     d = tmp_path_factory.mktemp('packs')
     raw_path = str(d / 'raw.npy')
     real_path = str(d / 'real.npy')
@@ -28,7 +28,7 @@ def native_packs(tmp_path_factory):
 
 def test_streaming_trainer_smoke(native_packs, tmp_path):
     raw_path, real_path = native_packs
-    from exposure_tpu.data.native_provider import NativePackProvider
+    from exposure_jax.data.native_provider import NativePackProvider
 
     cfg = load_config('test')
     cfg.name = 'stream_test/smoke'
@@ -42,7 +42,7 @@ def test_streaming_trainer_smoke(native_packs, tmp_path):
     cfg.real_data_provider = lambda: NativePackProvider(
         real_path, output_size=64, augmentation=0.0, seed=1)
 
-    from exposure_tpu.core.trainer import Trainer
+    from exposure_jax.core.trainer import Trainer
     trainer = Trainer(cfg, restore=False, model_root=str(tmp_path))
     assert trainer.streaming
     assert trainer.fake_images is None
@@ -60,7 +60,7 @@ def test_streaming_trainer_smoke(native_packs, tmp_path):
 def test_streaming_supervised_trainer_smoke(tmp_path):
     # supervised + stream_data: paired ground truth rides channel-stacked
     # in the per-call fresh data (steps.py::build_streaming_outer_step)
-    from exposure_tpu.core.trainer import Trainer
+    from exposure_jax.core.trainer import Trainer
 
     cfg = load_config('supervised_test')
     cfg.name = 'stream_test/supervised'
@@ -82,7 +82,7 @@ def test_streaming_supervised_trainer_smoke(tmp_path):
 
 
 def test_prefetcher_overlap_and_errors():
-    from exposure_tpu.utils.prefetch import AsyncPrefetcher
+    from exposure_jax.utils.prefetch import AsyncPrefetcher
     import time
 
     calls = []

@@ -6,21 +6,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exposure_tpu.core.losses import (
+from exposure_jax.core.losses import (
     generator_value_loss,
     supervised_distance,
 )
-from exposure_tpu.data.device_sampler import (
+from exposure_jax.data.device_sampler import (
     DevicePack,
     channels_to_paired,
     paired_to_channels,
     sample_batch,
 )
-from exposure_tpu.data.synthetic import (
+from exposure_jax.data.synthetic import (
     PairedSyntheticDataProvider,
     make_paired_synthetic_pack,
 )
-from exposure_tpu.utils import load_config
+from exposure_jax.utils import load_config
 
 
 class TestPairedData:
@@ -60,7 +60,7 @@ class TestPairedData:
 class TestSupervisedLoss:
     def test_reward_is_negative_distance(self, rng):
         cfg = load_config('supervised_test')
-        from exposure_tpu.core.trainer import build_models, \
+        from exposure_jax.core.trainer import build_models, \
             init_train_state
         filters, policy, critic, value = build_models(cfg)
         state, _ = init_train_state(cfg, policy, critic, value, 0)
@@ -82,7 +82,7 @@ class TestSupervisedLoss:
 
     def test_requires_ground_truth(self, rng):
         cfg = load_config('supervised_test')
-        from exposure_tpu.core.trainer import build_models, \
+        from exposure_jax.core.trainer import build_models, \
             init_train_state
         filters, policy, critic, value = build_models(cfg)
         state, _ = init_train_state(cfg, policy, critic, value, 0)
@@ -99,7 +99,7 @@ def test_supervised_smoke_train(tmp_path):
     cfg = load_config('supervised_test')
     cfg.name = 'supervised_test/smoke'
     cfg.max_iter_step = 2
-    from exposure_tpu.core.trainer import Trainer
+    from exposure_jax.core.trainer import Trainer
     trainer = Trainer(cfg, restore=False, model_root=str(tmp_path))
     trainer.train()
     if trainer.tee:
@@ -119,7 +119,7 @@ def test_supervised_fused_dispatch(tmp_path):
     cfg.max_iter_step = 8
     cfg.iters_per_dispatch = 4
     cfg.checkpoint_interval = 8
-    from exposure_tpu.core.trainer import Trainer
+    from exposure_jax.core.trainer import Trainer
     trainer = Trainer(cfg, restore=False, model_root=str(tmp_path))
     metrics = trainer.train()
     if trainer.tee:
@@ -131,8 +131,8 @@ def test_supervised_fused_dispatch(tmp_path):
 
 def test_quality_report_supervised_branch(tmp_path):
     # the report scores against the paired ground truth and adds MSE
-    from exposure_tpu.core.trainer import Trainer
-    from exposure_tpu.tools.quality_report import quality_report
+    from exposure_jax.core.trainer import Trainer
+    from exposure_jax.tools.quality_report import quality_report
     cfg = load_config('supervised_test').copy()
     cfg.name = 'supervised_test/qr'
     cfg.max_iter_step = 1

@@ -8,13 +8,13 @@ import pickle
 import numpy as np
 import pytest
 
-from exposure_tpu.tools.histogram_intersection import (
+from exposure_jax.tools.histogram_intersection import (
     calc_hist,
     get_statistics,
     hist_intersection,
 )
-from exposure_tpu.tools.user_study import RetouchSession, all_filters
-from exposure_tpu.tools.user_study.session import NUM_STEPS
+from exposure_jax.tools.user_study import RetouchSession, all_filters
+from exposure_jax.tools.user_study.session import NUM_STEPS
 
 
 class TestHistogramIntersection:
@@ -67,7 +67,7 @@ class TestUserStudy:
             assert 0 <= a['filter_id'] < len(all_filters)
 
     def test_tone_spline_is_monotone_defaults(self):
-        from exposure_tpu.tools.user_study.filters import ToneFilter
+        from exposure_jax.tools.user_study.filters import ToneFilter
         f = ToneFilter()
         x = np.linspace(0, 1, 64).astype(np.float32)[:, None, None]
         y = f.apply(np.concatenate([x] * 3, axis=2))
@@ -77,7 +77,7 @@ class TestUserStudy:
 
 class TestPickleToTex:
     def test_convert(self, tmp_path):
-        from exposure_tpu.tools.pickle_to_tex import convert
+        from exposure_jax.tools.pickle_to_tex import convert
         debug = [{
             'step': 0, 'filter_id': 1, 'short_name': 'T',
             'filter_parameters': np.linspace(0.5, 2, 8),
@@ -136,27 +136,13 @@ class TestQtShell:
 
         np.save(str(tmp_path / 'study0.npy'),
                 rng.rand(16, 16, 3).astype(np.float32))
-        from exposure_tpu.tools.user_study.main import run_qt
+        from exposure_jax.tools.user_study.main import run_qt
         run_qt(str(tmp_path), 'tester')
-
-
-class TestVerifyKernel:
-    def test_run_case_small(self, rng):
-        from exposure_tpu.tools.verify_kernel import run_case
-        from exposure_tpu.utils import load_config
-        cfg = load_config('test')
-        filters = [f(cfg) for f in cfg.filters]
-        r = run_case('small', np.random.RandomState(0), filters,
-                     (1, 32, 128), 2, dtype='f32', interpret=True)
-        assert r['ok'], r
-        r8 = run_case('small_u8', np.random.RandomState(1), filters,
-                      (1, 32, 128), 2, dtype='u8', interpret=True)
-        assert r8['ok'], r8
 
 
 class TestValidateParity:
     def test_summarize(self):
-        from exposure_tpu.tools.validate_parity import summarize
+        from exposure_jax.tools.validate_parity import summarize
         runs = [
             {'quality': {'intersection_before': [0.0, 0.0, 0.0],
                          'intersection_after': [0.7, 0.2, 0.3],
@@ -179,12 +165,12 @@ class TestProbeCriticFamily:
         import json
         import sys
 
-        from exposure_tpu.core.checkpoint import save_checkpoint
-        from exposure_tpu.core.trainer import (
+        from exposure_jax.core.checkpoint import save_checkpoint
+        from exposure_jax.core.trainer import (
             build_models,
             init_train_state,
         )
-        from exposure_tpu.utils import load_config
+        from exposure_jax.utils import load_config
 
         cfg = load_config('test')
         filters, policy, critic, value = build_models(cfg)
@@ -192,7 +178,7 @@ class TestProbeCriticFamily:
         for run in ('run_a', 'run_b'):
             save_checkpoint(str(tmp_path / 'test' / run), state, 1)
 
-        from exposure_tpu.tools import probe_critic_family as pcf
+        from exposure_jax.tools import probe_critic_family as pcf
         out = tmp_path / 'probe.json'
         monkeypatch.setattr(sys, 'argv', [
             'prog', '--runs', 'test/run_a', 'test/run_b',
@@ -214,7 +200,7 @@ class TestProbeCriticFamily:
 
 class TestSelectPolicy:
     def test_consensus_ranking_math(self):
-        from exposure_tpu.tools.probe_critic_family import consensus_ranking
+        from exposure_jax.tools.probe_critic_family import consensus_ranking
 
         names = ['out:a', 'out:b', 'out:c']
         matrix = {
@@ -233,7 +219,7 @@ class TestSelectPolicy:
         assert mean_rank['out:a'] == pytest.approx((2 + 3 + 2) / 3)
 
     def test_family_separation_statistic(self):
-        from exposure_tpu.tools.probe_critic_family import (
+        from exposure_jax.tools.probe_critic_family import (
             ABSTAIN_THRESHOLD,
             family_separation,
         )
@@ -277,9 +263,9 @@ class TestSelectPolicy:
     def test_select_end_to_end_with_promote(self, tmp_path, monkeypatch):
         import sys
 
-        from exposure_tpu.core.checkpoint import save_checkpoint
-        from exposure_tpu.core.trainer import build_models, init_train_state
-        from exposure_tpu.utils import load_config
+        from exposure_jax.core.checkpoint import save_checkpoint
+        from exposure_jax.core.trainer import build_models, init_train_state
+        from exposure_jax.utils import load_config
 
         cfg = load_config('test')
         filters, policy, critic, value = build_models(cfg)
@@ -293,7 +279,7 @@ class TestSelectPolicy:
             {'run': 'test/seed1', 'quality': {'avg_after': 0.6}},
         ]}))
 
-        from exposure_tpu.tools import select_policy as sp
+        from exposure_jax.tools import select_policy as sp
         out = tmp_path / 'select.json'
         # identical checkpoints -> identical outputs -> ZERO family
         # separation: consensus ABSTAINS and promotion falls back to
@@ -332,7 +318,7 @@ class TestSelectPolicy:
         assert link.is_symlink()
         assert os.readlink(link) == 'seed1'
         # promoted run restores through the symlink like a normal run
-        from exposure_tpu.core.evaluator import Evaluator
+        from exposure_jax.core.evaluator import Evaluator
         cfg2 = load_config('test')
         cfg2.name = 'test/best'
         Evaluator(cfg2, model_root=str(tmp_path))
@@ -346,7 +332,7 @@ class TestValidateSelector:
         Ct-usage rescues it."""
         import sys
 
-        from exposure_tpu.tools import validate_selector as vs
+        from exposure_jax.tools import validate_selector as vs
 
         np.testing.assert_array_equal(
             vs.rankdata([3.0, 1.0, 2.0]), [3.0, 1.0, 2.0])
@@ -380,7 +366,7 @@ class TestValidateSelector:
         assert d['shipped'] == 'comp2'
 
     def test_comp2_scores_in_select_policy(self):
-        from exposure_tpu.tools.select_policy import comp2_scores
+        from exposure_jax.tools.select_policy import comp2_scores
 
         runs = ['a', 'b', 'c']
         scores = comp2_scores(runs, ct_usage={'a': 250, 'b': 120,
@@ -398,10 +384,10 @@ class TestEditSequence:
         """One-command white-box edit: halve a recorded exposure boost,
         replay, and check the output dims accordingly (reference
         net.py:841-877 step export is the artifact this edits)."""
-        from exposure_tpu.core.trainer import build_models
-        from exposure_tpu.tools import edit_sequence as es
-        from exposure_tpu.utils import load_config
-        from exposure_tpu.utils.image_io import read_image, write_image
+        from exposure_jax.core.trainer import build_models
+        from exposure_jax.tools import edit_sequence as es
+        from exposure_jax.utils import load_config
+        from exposure_jax.utils.image_io import read_image, write_image
 
         cfg = load_config('test')
         filters, _, _, _ = build_models(cfg)
@@ -454,6 +440,6 @@ class TestEditSequence:
         after2 = read_image(str(out2 / 'after.png'))
         lin = es.load_debug(dbg)  # sanity: tool did not mutate the pkl
         assert lin[0]['applied'] is True
-        from exposure_tpu.core.evaluator import load_linear_image
+        from exposure_jax.core.evaluator import load_linear_image
         ident = np.clip(load_linear_image(str(img)), 0, 1)
         assert np.abs(after2 - ident).max() < 2.5 / 255

@@ -8,14 +8,14 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from exposure_tpu.core.replay import PoolState
-from exposure_tpu.core.steps import build_outer_step
-from exposure_tpu.core.train_state import TrainState, make_optimizer
-from exposure_tpu.data.synthetic import make_synthetic_pack
-from exposure_tpu.models import CriticNet, PolicyNet
-from exposure_tpu.parallel.mesh import DATA_AXIS, data_parallel_mesh
-from exposure_tpu.utils import load_config
-from exposure_tpu.utils.ops import STATE_STEP_DIM, STATE_STOPPED_DIM
+from exposure_jax.core.replay import PoolState
+from exposure_jax.core.steps import build_outer_step
+from exposure_jax.core.train_state import TrainState, make_optimizer
+from exposure_jax.data.synthetic import make_synthetic_pack
+from exposure_jax.models import CriticNet, PolicyNet
+from exposure_jax.parallel.mesh import DATA_AXIS, data_parallel_mesh
+from exposure_jax.utils import load_config
+from exposure_jax.utils.ops import STATE_STEP_DIM, STATE_STOPPED_DIM
 
 
 @pytest.fixture(scope='module')
@@ -104,10 +104,10 @@ def test_weight_clipping_fallback(setup):
     # gan='w' with gradient_penalty_lambda<=0 clamps critic weights to
     # +-clamp_critic after each update (reference net.py:253-266)
     cfg, state, pool, fake_pack, real_pack, _ = setup
-    from exposure_tpu.core.steps import build_outer_step
-    from exposure_tpu.core.train_state import make_optimizer
-    from exposure_tpu.core.trainer import build_models
-    from exposure_tpu.parallel.mesh import data_parallel_mesh
+    from exposure_jax.core.steps import build_outer_step
+    from exposure_jax.core.train_state import make_optimizer
+    from exposure_jax.core.trainer import build_models
+    from exposure_jax.parallel.mesh import data_parallel_mesh
     cfg2 = cfg.copy()
     cfg2.gradient_penalty_lambda = 0
     cfg2.clamp_critic = 0.01
@@ -128,7 +128,7 @@ def test_citers_zero_leaves_critic_and_ema(setup):
     # a generator-only phase (citers=0, as composed by the Trainer and as
     # supervised mode always runs) must not touch the critic or its EMA
     cfg, state, pool, fake_pack, real_pack, _ = setup
-    from exposure_tpu.core.trainer import build_models
+    from exposure_jax.core.trainer import build_models
     filters, policy, critic, value = build_models(cfg)
     tx = make_optimizer(cfg.adam_beta1, cfg.adam_beta2)
     mesh = data_parallel_mesh(8)
@@ -149,7 +149,7 @@ def test_ema_zero_debias():
     # tf.train.ExponentialMovingAverage(0.99, zero_debias=True) parity
     # (reference net.py:119-120): value 0 before any update; after one
     # update the debiased value equals the raw observation.
-    from exposure_tpu.core.train_state import EmaState
+    from exposure_jax.core.train_state import EmaState
     ema = EmaState.create()
     assert float(ema.value) == 0.0
     ema1 = ema.update(jnp.float32(5.0))
@@ -160,7 +160,7 @@ def test_ema_zero_debias():
 
 
 def test_pool_health_warning():
-    from exposure_tpu.core.trainer import pool_health_warning
+    from exposure_jax.core.trainer import pool_health_warning
     assert pool_health_warning(5, False, 0.0) is not None
     assert pool_health_warning(0, False, 0.0) is None  # no critic phase
     assert pool_health_warning(5, True, 0.0) is None   # supervised
@@ -182,8 +182,8 @@ def test_fused_iterations_match_sequential(setup):
     # per-iteration dispatch pair (g-phase call + c-phase call) exactly,
     # including the RNG folding.
     cfg, state, pool, fake_pack, real_pack, _ = setup
-    from exposure_tpu.core.steps import build_fused_iterations_step
-    from exposure_tpu.core.trainer import build_models
+    from exposure_jax.core.steps import build_fused_iterations_step
+    from exposure_jax.core.trainer import build_models
     filters, policy, critic, value = build_models(cfg)
     tx = make_optimizer(cfg.adam_beta1, cfg.adam_beta2)
     mesh = data_parallel_mesh(8)
@@ -240,7 +240,7 @@ def test_fused_iterations_match_sequential(setup):
 
 
 def test_plan_fused_chunk():
-    from exposure_tpu.core.trainer import plan_fused_chunk
+    from exposure_jax.core.trainer import plan_fused_chunk
     cfg = load_config('test').copy()
     cfg.max_iter_step = 20000
     cfg.critic_initialization = 10

@@ -3,12 +3,12 @@
 
 CLI parity with the reference train.py:9-14 (same positional arguments,
 same ``models/<config>/<run>`` layout).  Extra optional flags are
-TPU-native additions (resume, device count)."""
+additions (resume, device count)."""
 
 import argparse
 
-from exposure_tpu.utils.config import load_config
-from exposure_tpu.core.trainer import Trainer
+from exposure_jax.utils.config import load_config
+from exposure_jax.core.trainer import Trainer
 
 
 def main():
